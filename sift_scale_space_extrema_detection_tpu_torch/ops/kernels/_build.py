@@ -1,0 +1,96 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load them with ctypes.
+
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
+one ``nvcc`` call builds them in seconds into ``build/`` beside this file
+(listed in ``.gitignore``). The library is named by a hash of the sources
+and flags, so an edited source is rebuilt and a finished build is reused.
+``-fmad=false`` keeps every product and sum separately rounded, which is
+what makes the kernels agree bit for bit with their plain PyTorch versions.
+
+There is no fallback: without ``nvcc`` or on a failed build,
+:func:`load_kernels` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-fmad=false",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # host int array
+_SIGNATURES = {  # name: (argtypes, restype)
+    # base, batch, h, w, upsample2x, taps, tap_offsets, radii, n_scales,
+    # spo, contrast_thr, stack, tmp, dog, seed, masks, mask16, stream
+    "sift_fused_octave": (
+        [_P, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, ctypes.c_float,
+         _P, _P, _P, _P, _P, _I, _P],
+        _I,
+    ),
+    "sift_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``). Raises ``RuntimeError`` when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    candidate = cuda_home / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME: the CUDA kernels in "
+        f"{CSRC_DIR} are built with nvcc for sm_90a and have no fallback"
+    )
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    nvcc = _find_nvcc()
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in sources)
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libsift_kernels_{digest}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{lib_path.stem}.tmp{os.getpid()}.so"
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: concurrent builds race benignly
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
