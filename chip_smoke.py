@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's detect path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and ``nvcc``, and imports nothing of JAX.
@@ -7,19 +7,46 @@ It needs one CUDA device and ``nvcc``, and imports nothing of JAX.
 Phases (any failure exits non-zero and prints no result):
 
 1. device — CUDA present; the card's name and power limit; the TF32
-   settings (nothing on the path multiplies matrices or convolves).
+   settings (the describe stages' histograms are float32 matrix products
+   and need TF32 off; nothing on the path convolves).
 2. build — the CUDA kernels are built from the checkout's sources.
-3. kernel vs plain — at every octave geometry of the main path, on a few
-   full-size images, the fused octave kernel against its plain PyTorch
-   version on the same CUDA tensors: DoG and seed max abs diff <= 1e-6,
-   masks equal on >= 99.99 % of pixels.
-4. main path — ``detect_batched`` on 64 × 480×640 frames (the bench
+3. fused octave vs plain — at every octave geometry of the main path, on a
+   few full-size images, the kernel against its plain PyTorch version on
+   the same CUDA tensors: DoG and seed max abs diff <= 1e-6, masks equal
+   on >= 99.99 % of pixels.
+4. the detect path — ``detect_batched`` on 64 × 480×640 frames (the bench
    recipe) at 4 octaves × 5 scales: each octave launches the kernel, valid
    keypoints exist and are finite, and the same batch through the plain
    version agrees (slot agreement >= 0.999, p99 position delta <= 0.1 px).
-5. timings — per octave at batch 64, kernel against plain (CUDA events,
-   in turns plain/kernel/kernel/plain), and the whole ``detect_batched``
-   in frames/s (host clock around synchronised runs).
+5. timings of the fused octave — per octave at batch 64, kernel against
+   plain (CUDA events, in turns plain/kernel/kernel/plain), and the whole
+   ``detect_batched`` in frames/s (host clock around synchronised runs).
+6. the describe path — ``detect_and_describe_batched`` on the same batch:
+   the fused octave launches per octave, the window-sampling kernel per
+   describe stage and the stand-alone blur never; valid descriptors exist,
+   are finite and have unit norm; the same batch through the plain versions
+   agrees (slot agreement >= 0.999, p99 of the θ difference <= 1e-3 rad,
+   min cosine >= 0.999).
+7. window sampling vs plain — the batch's real slots and coordinates of
+   both describe stages through the kernel and its plain version: max abs
+   diff <= 1e-6, invalid slots exactly zero. Then the per-octave describe
+   (``compact_describe=False``) on the same batch: two sampling launches
+   per octave, and every field equal to the same path through the plain
+   sampler (descriptors and θ within 1e-6).
+8. the scale-space path — ``build_scale_space(blur="cuda")`` on the whole
+   batch launches the blur kernel once per blurred scale and equals the
+   fused pyramid's Gaussian stacks within 1e-6.
+9. blur vs plain — every blurred (octave, scale) of that path, on the
+   64-frame base the path blurs, through the stand-alone blur kernel and
+   its plain version: max abs diff <= 1e-6.
+10. timings of the describe and blur kernels — window sampling per stage
+    and the blur per (octave, scale) at batch 64 (CUDA events, kernel
+    against plain in turns; the blur also against two cuDNN ``conv2d``
+    calls), and ``detect_and_describe_batched`` in frames/s with its stages.
+
+A kernel's ``bound_ms`` is the least time the card could take: the larger
+of the bytes that must move (each input read once, each output written
+once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record.
@@ -35,12 +62,19 @@ import time
 import numpy as np
 
 BATCH, HEIGHT, WIDTH = 64, 480, 640
-KERNEL_SOURCE = "sift_scale_space_extrema_detection_tpu_torch/ops/kernels/csrc/octave.cu"
-REPLACES = "sift_scale_space_extrema_detection_tpu/ops/pallas/octave.py:437"
+CSRC = "sift_scale_space_extrema_detection_tpu_torch/ops/kernels/csrc/"
+PALLAS = "sift_scale_space_extrema_detection_tpu/ops/pallas/"
 MAX_ABS_ERR = 1e-6
 MASK_AGREEMENT = 0.9999
 SLOT_AGREEMENT = 0.999
 P99_PX = 0.1
+P99_THETA = 1e-3
+MIN_COSINE = 0.999
+NORM_ATOL = 1e-3
+# The card's published peaks (NVIDIA H100 SXM data sheet).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+SAMPLE_FLOP = 40  # per gradient sample: 8 differences, 8 halvings, 2 blends of 9, clamps
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -88,7 +122,64 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _in_turns(torch, kernel, plain, kernel_reps: int, plain_reps: int):
+    """``(kernel_ms, plain_ms, rounds)``: both warmed up, then timed in
+    turns plain/kernel/kernel/plain, each side the mean of its two rounds."""
+    kernel()
+    plain()
+    rounds = [
+        _event_ms(torch, plain, plain_reps),
+        _event_ms(torch, kernel, kernel_reps),
+        _event_ms(torch, kernel, kernel_reps),
+        _event_ms(torch, plain, plain_reps),
+    ]
+    return (rounds[1] + rounds[2]) / 2, (rounds[0] + rounds[3]) / 2, rounds
+
+
+def _bound(n_bytes: float, flop: float) -> tuple[float, str]:
+    """``(bound_ms, bound_by)`` of work that moves ``n_bytes`` and does
+    ``flop`` float32 operations."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    by_flop = 1e3 * flop / PEAK_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_flop else (by_flop, "operations")
+
+
+def _blur_flop(pixels: int, radius: int) -> int:
+    """Two passes of ``2r+1`` products and ``2r`` sums per pixel."""
+    return 2 * (2 * (2 * radius + 1) - 1) * pixels
+
+
+def _window_bytes(torch, stacks, table, ys, xs) -> float:
+    """Bytes the window sampling must move for these slots: the slot table,
+    the samples written for every slot, and for each valid slot its
+    coordinates and the window of its plane that its samples' corners and
+    their central differences touch, once."""
+    m, n = ys.shape
+    octave = table[:, 1].long()
+    valid = table[:, 3] != 0
+    hs = torch.tensor([s.shape[2] for s in stacks], device=ys.device)[octave]
+    ws = torch.tensor([s.shape[3] for s in stacks], device=ys.device)[octave]
+
+    def extent(coords, size):
+        corner = coords.clamp(min=0).minimum((size - 1)[:, None]).floor().long()
+        lo = (corner.amin(dim=1) - 1).clamp(min=0)
+        hi = (corner.amax(dim=1) + 2).minimum(size - 1)
+        return hi - lo + 1
+
+    window = (extent(ys, hs) * extent(xs, ws))[valid].sum().item()
+    return 16 * m + 8 * m * n + int(valid.sum()) * 8 * n + 4 * window
+
+
+def _slot_agreement(got, want):
+    return (
+        (got.valid == want.valid)
+        & (~got.valid | ((got.octave == want.octave) & (got.scale_level == want.scale_level)))
+    ).float().mean().item()
+
+
 def main() -> int:
+    import dataclasses
+
     import torch
 
     # --- 1. device ------------------------------------------------------
@@ -104,21 +195,44 @@ def main() -> int:
         f"device: {kind}, {torch.cuda.device_count()} visible, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 matmul="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-        f"{torch.backends.cudnn.allow_tf32} (neither is used on the path)"
+        f"{torch.backends.cudnn.allow_tf32} (the describe histograms are float32 "
+        f"matrix products and need TF32 matmul off; nothing on the path convolves)"
     )
+    _require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matrix products are on")
 
     from sift_scale_space_extrema_detection_tpu_torch import SiftConfig
+    from sift_scale_space_extrema_detection_tpu_torch.core.types import concat_keypoints
     from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
         build_pyramid_fused,
+        build_scale_space,
+        detect_and_describe_batched,
         detect_batched,
-        detect_from_dog,
+        detect_octaves,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import (
+        concat_described,
+        describe_compact,
+        describe_octave,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import (
+        blur_separable,
+        kernel_radius,
+        taps_f32,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+        window_sample_pair,
+        window_sample_pair_reference,
+    )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
         fused_octave,
         fused_octave_reference,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.resize import downsample2x_nn
+    from sift_scale_space_extrema_detection_tpu_torch.ops.resize import (
+        downsample2x_nn,
+        upsample2x_nn,
+    )
 
     # --- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -181,14 +295,16 @@ def main() -> int:
                   & (keypoints.abs_y[valid] >= 0).all() & (keypoints.abs_y[valid] < HEIGHT).all()),
              "keypoints outside the frame")
 
-    dogs, masks = build_pyramid_fused(images, cfg, octave_fn=fused_octave_reference)
-    plain, plain_extrema = detect_from_dog(dogs, cfg, masks)
-    torch.cuda.synchronize()
-    slot_eq = (keypoints.valid == plain.valid) & (
-        ~keypoints.valid
-        | ((keypoints.octave == plain.octave) & (keypoints.scale_level == plain.scale_level))
+    # The plain path's Gaussian stacks and per-octave keypoints are kept
+    # for phase 6, which describes them through the plain sampler.
+    dogs, masks, plain_stacks = build_pyramid_fused(
+        images, cfg, octave_fn=fused_octave_reference, emit_scales=True
     )
-    agreement = slot_eq.float().mean().item()
+    plain_keypoints, plain_extrema = detect_octaves(dogs, cfg, masks)
+    plain = concat_keypoints(plain_keypoints)
+    torch.cuda.synchronize()
+    del dogs, masks
+    agreement = _slot_agreement(keypoints, plain)
     both = keypoints.valid & plain.valid
     delta = torch.hypot(
         keypoints.abs_x[both] - plain.abs_x[both], keypoints.abs_y[both] - plain.abs_y[both]
@@ -205,16 +321,24 @@ def main() -> int:
     _require(agreement >= SLOT_AGREEMENT, "slot agreement below the bar")
     _require(p99 <= P99_PX, "p99 position delta above the bar")
 
-    # --- 5. timings ------------------------------------------------------
+    # --- 5. timings of the fused octave -----------------------------------
     bases, base = [], images
     for octave in range(cfg.num_octaves):
         bases.append(base)
         _, seed, _ = fused_octave(base, _octave_sigmas(cfg, octave), spo, thr, upsample2x=octave == 0)
         base = downsample2x_nn(seed).contiguous()
-    kernel_ms, plain_ms = [], []
+    kernel_ms, plain_ms, octave_bounds = [], [], []
     for octave, base in enumerate(bases):
         args = (base, _octave_sigmas(cfg, octave), spo, thr)
         up2 = octave == 0
+        # Least work: read the base; write DoG, seed and 2-byte masks.
+        pixels = base.numel() * (4 if up2 else 1)
+        n_scales = cfg.scales_per_octave_total
+        radii = [0 if sg is None else kernel_radius(sg) for sg in args[1]]
+        octave_bounds.append(_bound(
+            4 * base.numel() + pixels * (4 * (n_scales - 1) + 4 + 2),
+            sum(_blur_flop(pixels, r) for r in radii) + pixels * (n_scales - 1),
+        ))
 
         def kernel(args=args, up2=up2):
             return fused_octave(*args, upsample2x=up2)
@@ -222,22 +346,15 @@ def main() -> int:
         def reference(args=args, up2=up2):
             return fused_octave_reference(*args, upsample2x=up2)
 
-        kernel()
-        reference()
-        rounds = [
-            _event_ms(torch, reference, 3),
-            _event_ms(torch, kernel, 10),
-            _event_ms(torch, kernel, 10),
-            _event_ms(torch, reference, 3),
-        ]
-        k_ms, p_ms = (rounds[1] + rounds[2]) / 2, (rounds[0] + rounds[3]) / 2
+        k_ms, p_ms, rounds = _in_turns(torch, kernel, reference, 10, 3)
         kernel_ms.append(k_ms)
         plain_ms.append(p_ms)
         _say(
             f"timing octave {octave} {tuple(base.shape)}{' (upsampled 2x)' if up2 else ''}: "
             f"kernel {k_ms:.3f} ms (rounds {rounds[1]:.3f}, {rounds[2]:.3f}), plain "
             f"{p_ms:.3f} ms (rounds {rounds[0]:.3f}, {rounds[3]:.3f}), plain/kernel "
-            f"{p_ms / k_ms:.2f}x [{smi}]"
+            f"{p_ms / k_ms:.2f}x, bound {octave_bounds[-1][0]:.3f} ms by "
+            f"{octave_bounds[-1][1]} [{smi}]"
         )
 
     iters = 5
@@ -248,7 +365,7 @@ def main() -> int:
         dogs, masks = build_pyramid_fused(images, cfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        detect_from_dog(dogs, cfg, masks)
+        detect_octaves(dogs, cfg, masks)
         torch.cuda.synchronize()
         t_pyr += t1 - t0
         t_tail += time.perf_counter() - t1
@@ -265,18 +382,332 @@ def main() -> int:
         f"refinement {1e3 * t_tail / iters:.2f} ms per batch [{smi}]"
     )
 
+    del dogs, masks
+
+    # --- 6. the describe path ----------------------------------------------
+    detect_and_describe_batched(images, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    described = detect_and_describe_batched(images, cfg)
+    torch.cuda.synchronize()
+    describe_launches = {
+        "fused_octave": fused_octave.launches,
+        "window_sample_pair": window_sample_pair.launches,
+        "blur_fused": blur_fused.launches,
+    }
+    describe_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dvalid = described.valid
+    n_described = int(dvalid.sum())
+    _say(
+        f"describe path: detect_and_describe_batched {BATCH}x{HEIGHT}x{WIDTH}: launches "
+        f"{describe_launches}, valid descriptors {n_described} of "
+        f"{BATCH * cfg.descriptor_pair_capacity()} pair slots "
+        f"({cfg.describe_capacity()} keypoint slots per image), peak device memory "
+        f"{describe_peak_gib:.2f} GiB"
+    )
+    _require(describe_launches["fused_octave"] >= cfg.num_octaves,
+             "the describe path did not launch the octave kernel per octave")
+    _require(describe_launches["window_sample_pair"] >= 2,
+             "the describe path did not launch the sampling kernel per stage")
+    _require(describe_launches["blur_fused"] == 0,
+             "the fused-only describe path launched the stand-alone blur")
+    _require(tuple(described.descriptor.shape) == (BATCH, cfg.descriptor_pair_capacity(), 128),
+             f"descriptor shape {tuple(described.descriptor.shape)}")
+    _require(n_described > 0, "no valid descriptors")
+    _require(bool(torch.isfinite(described.descriptor).all()), "descriptors not finite")
+    norms = described.descriptor[dvalid].norm(dim=-1)
+    _require(bool(((norms - 1).abs() <= NORM_ATOL).all()), "descriptor norms off 1")
+    theta = described.theta[dvalid]
+    _require(bool(((theta >= 0) & (theta < 6.2831855)).all()), "theta outside [0, 2pi)")
+
+    plain_described = describe_compact(
+        plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
+    )
+    torch.cuda.synchronize()
+    del plain_stacks, plain_keypoints
+    agreement = _slot_agreement(described, plain_described)
+    both = dvalid & plain_described.valid
+    dtheta = (described.theta[both] - plain_described.theta[both]).abs()
+    dtheta = torch.minimum(dtheta, 6.2831855 - dtheta)
+    p99_theta = torch.quantile(dtheta.double(), 0.99).item()
+    # The cosine is taken where θ agrees: a pair whose θ differs describes
+    # another rotation, which the θ quantile above accounts for.
+    same = dtheta <= P99_THETA
+    cosine = (described.descriptor[both][same] * plain_described.descriptor[both][same]).sum(-1)
+    _say(
+        f"describe path vs plain on the card: valid {n_described} vs "
+        f"{int(plain_described.valid.sum())}, slot agreement {agreement:.6f}, theta "
+        f"diff p99 {p99_theta:.3g} rad (max {dtheta.max().item():.3g}), min cosine "
+        f"{cosine.min().item():.7f} over {int(same.sum())} pairs"
+    )
+    _require(agreement >= SLOT_AGREEMENT, "describe slot agreement below the bar")
+    _require(p99_theta <= P99_THETA, "theta difference above the bar")
+    _require(cosine.min().item() >= MIN_COSINE, "descriptor cosine below the bar")
+    del plain_described
+
+    # --- 7. window sampling vs plain on the batch's real slots ----------------
+    dogs, masks, stacks = build_pyramid_fused(images, cfg, emit_scales=True)
+    keypoints_list, _ = detect_octaves(dogs, cfg, masks)
+    del dogs, masks
+    stages = []  # the kernel's inputs, as the path gives them
+
+    def recording(stacks, table, ys, xs):
+        stages.append((table, ys, xs))
+        return window_sample_pair(stacks, table, ys, xs)
+
+    describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
+    _require(len(stages) == 2, f"{len(stages)} describe stages sampled")
+    sample_err, sample_ms, sample_plain_ms, sample_bounds = 0.0, [], [], []
+    for name, (table, ys, xs) in zip(("orientation", "descriptor"), stages):
+        got = window_sample_pair(stacks, table, ys, xs)
+        want = window_sample_pair_reference(stacks, table, ys, xs)
+        torch.cuda.synchronize()
+        err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
+        invalid = table[:, 3] == 0
+        zeros = not bool(got[0][invalid].any() | got[1][invalid].any())
+        _say(
+            f"window sampling vs plain, {name} stage {tuple(ys.shape)}: max abs diff "
+            f"{err:.3g}, {int(invalid.sum())} invalid slots zero {zeros}, largest "
+            f"|gradient| {got[0].abs().max().item():.3g}"
+        )
+        _require(err <= MAX_ABS_ERR, f"{name} samples differ by more than {MAX_ABS_ERR}")
+        _require(zeros, f"{name} stage: an invalid slot is not zero")
+        _require(bool(got[0].any()), f"{name} stage sampled only zeros")
+        sample_err = max(sample_err, err)
+        del got, want
+
+    # The per-octave describe, which ``compact_describe=False`` selects:
+    # every slot of every octave, one single-stack slot table per octave.
+    per_octave_cfg = dataclasses.replace(cfg, compact_describe=False)
+    window_sample_pair.launches = 0
+    per_octave = detect_and_describe_batched(images, per_octave_cfg)
+    torch.cuda.synchronize()
+    per_octave_launches = window_sample_pair.launches
+    per_octave_plain = concat_described([
+        describe_octave(stack, kp, octave, cfg, sample_fn=window_sample_pair_reference)
+        for octave, (stack, kp) in enumerate(zip(stacks, keypoints_list))
+    ])
+    torch.cuda.synchronize()
+    per_octave_err = max(
+        (per_octave.descriptor - per_octave_plain.descriptor).abs().max().item(),
+        (per_octave.theta - per_octave_plain.theta)[per_octave_plain.valid].abs().max().item(),
+    )
+    per_octave_same = all(
+        torch.equal(getattr(per_octave, f), getattr(per_octave_plain, f))
+        for f in ("valid", "octave", "scale_level", "abs_y", "abs_x", "abs_sigma")
+    )
+    _say(
+        f"per-octave describe (compact_describe=False) {BATCH}x{HEIGHT}x{WIDTH}: sampling "
+        f"launches {per_octave_launches} over {tuple(per_octave.valid.shape)} pair slots, "
+        f"valid {int(per_octave.valid.sum())} (compacting path {n_described}); against the "
+        f"plain sampler: slots equal {per_octave_same}, descriptor and theta max abs diff "
+        f"{per_octave_err:.3g}"
+    )
+    _require(per_octave_launches == 2 * cfg.num_octaves,
+             "the per-octave describe did not launch the sampling kernel twice per octave")
+    _require(per_octave_same, "per-octave describe: slots differ from the plain sampler's")
+    _require(per_octave_err <= MAX_ABS_ERR, "per-octave describe differs from the plain sampler's")
+    _require(int(per_octave.valid.sum()) >= n_described,
+             "the per-octave describe holds fewer descriptors than the compacting one")
+    sample_err = max(sample_err, per_octave_err)
+    del per_octave, per_octave_plain
+
+    # --- 8. the scale-space path -----------------------------------------------
+    n_blurs = cfg.scales_per_octave_total + (cfg.scales_per_octave_total - 1) * (cfg.num_octaves - 1)
+    build_scale_space(images[:4], cfg, blur="cuda")  # warm-up
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    scale_space = build_scale_space(images, cfg, blur="cuda")
+    torch.cuda.synchronize()
+    blur_launches = blur_fused.launches
+    space_err = max((a - b).abs().max().item() for a, b in zip(scale_space, stacks))
+    _say(
+        f"scale-space path: build_scale_space(blur='cuda') on {tuple(images.shape)}: blur "
+        f"launches {blur_launches} (expected {n_blurs}), max abs diff to the fused "
+        f"pyramid's stacks {space_err:.3g}"
+    )
+    _require(blur_launches == n_blurs, "the scale-space path did not launch one blur per scale")
+    _require(space_err <= MAX_ABS_ERR, "scale space differs from the fused pyramid's stacks")
+    _require(all(bool(torch.isfinite(s).all()) for s in scale_space), "scale space not finite")
+    # The planes the path hands to the blur, octave by octave.
+    octave_bases = [upsample2x_nn(images).contiguous()] + [
+        downsample2x_nn(s[:, spo]).contiguous() for s in scale_space[:-1]
+    ]
+    del scale_space
+
+    # --- 9. blur vs plain at every (octave, scale) of that path ------------------
+    blur_err = 0.0
+    for octave, base in enumerate(octave_bases):
+        octave_err = 0.0
+        for scale, sigma in enumerate(_octave_sigmas(cfg, octave)):
+            if sigma is None:
+                continue
+            err = (blur_fused(base, sigma) - blur_separable(base, sigma)).abs().max().item()
+            _require(err <= MAX_ABS_ERR, f"blur octave {octave} scale {scale} differs by {err}")
+            octave_err = max(octave_err, err)
+        blur_err = max(blur_err, octave_err)
+        _say(
+            f"blur vs plain, octave {octave} {tuple(base.shape)}, sigmas "
+            f"{[round(sg, 3) for sg in _octave_sigmas(cfg, octave) if sg is not None]}: "
+            f"max abs diff {octave_err:.3g}"
+        )
+
+    # --- 10. timings of the describe and blur kernels ---------------------------
+    for name, (table, ys, xs) in zip(("orientation", "descriptor"), stages):
+        k_ms, p_ms, rounds = _in_turns(
+            torch,
+            lambda: window_sample_pair(stacks, table, ys, xs),
+            lambda: window_sample_pair_reference(stacks, table, ys, xs),
+            10, 2,
+        )
+        n_valid = int((table[:, 3] != 0).sum())
+        bound = _bound(
+            _window_bytes(torch, stacks, table, ys, xs), SAMPLE_FLOP * n_valid * ys.shape[1]
+        )
+        sample_ms.append(k_ms)
+        sample_plain_ms.append(p_ms)
+        sample_bounds.append(bound)
+        _say(
+            f"timing window sampling, {name} stage {tuple(ys.shape)}, {n_valid} valid slots: "
+            f"kernel {k_ms:.3f} ms (rounds {rounds[1]:.3f}, {rounds[2]:.3f}), plain {p_ms:.3f} "
+            f"ms (rounds {rounds[0]:.3f}, {rounds[3]:.3f}), plain/kernel {p_ms / k_ms:.2f}x, "
+            f"bound {bound[0]:.4f} ms by {bound[1]} [{smi}]"
+        )
+    del stages, stacks, keypoints_list
+
+    import torch.nn.functional as F
+
+    def library_blur(image, sigma):
+        """The same blur as two cuDNN convolutions (1×k, then k×1) on
+        replicate-padded planes; a yardstick only, the port never calls it."""
+        taps = torch.tensor(taps_f32(sigma), device=image.device)
+        r = (taps.numel() - 1) // 2
+        x = F.pad(image[:, None], (r, r, 0, 0), mode="replicate")
+        x = F.conv2d(x, taps.view(1, 1, 1, -1))
+        x = F.pad(x, (0, 0, r, r), mode="replicate")
+        return F.conv2d(x, taps.view(1, 1, -1, 1))[:, 0]
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    blur_ms = blur_plain_ms = blur_library_ms = 0.0
+    blur_bytes = blur_flop = 0
+    for octave, base in enumerate(octave_bases):
+        for scale, sigma in enumerate(_octave_sigmas(cfg, octave)):
+            if sigma is None:
+                continue
+            radius = kernel_radius(sigma)
+            k_ms, p_ms, _ = _in_turns(
+                torch, lambda: blur_fused(base, sigma), lambda: blur_separable(base, sigma), 5, 2
+            )
+            lib_err = (library_blur(base, sigma) - blur_fused(base, sigma)).abs().max().item()
+            _require(lib_err <= 1e-5, f"the library yardstick computes another blur ({lib_err})")
+            l_ms = _event_ms(torch, lambda: library_blur(base, sigma), 5)
+            bound = _bound(8 * base.numel(), _blur_flop(base.numel(), radius))
+            blur_ms += k_ms
+            blur_plain_ms += p_ms
+            blur_library_ms += l_ms
+            blur_bytes += 8 * base.numel()
+            blur_flop += _blur_flop(base.numel(), radius)
+            _say(
+                f"timing blur octave {octave} scale {scale} {tuple(base.shape)} sigma "
+                f"{sigma:.4f} radius {radius}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, two "
+                f"conv2d {l_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} [{smi}]"
+            )
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    blur_bound = sum(
+        _bound(8 * base.numel(), _blur_flop(base.numel(), kernel_radius(sigma)))[0]
+        for octave, base in enumerate(octave_bases)
+        for sigma in _octave_sigmas(cfg, octave) if sigma is not None
+    )
+    _say(
+        f"timing blur, all {n_blurs} blurs of the scale-space path at {BATCH} "
+        f"frames: kernel {blur_ms:.3f} ms, plain {blur_plain_ms:.3f} ms, two conv2d "
+        f"{blur_library_ms:.3f} ms, bound {blur_bound:.3f} ms [{smi}]"
+    )
+    del octave_bases
+
+    marks = []
+
+    def marking(stacks, table, ys, xs):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return window_sample_pair(stacks, table, ys, xs)
+
+    t_stage = [0.0] * 4  # pyramid, selection + refinement, orientation, descriptor
+    for _ in range(iters):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dogs, masks, stacks = build_pyramid_fused(images, cfg, emit_scales=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        keypoints_list, _ = detect_octaves(dogs, cfg, masks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        describe_compact(stacks, keypoints_list, cfg, sample_fn=marking)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for i, dt in enumerate((t1 - t0, t2 - t1, marks[1] - t2, t3 - marks[1])):
+            t_stage[i] += dt
+    del dogs, masks, stacks, keypoints_list
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        detect_and_describe_batched(images, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _say(
+        f"timing detect_and_describe_batched: {1e3 * seconds / iters:.2f} ms per {BATCH}-frame "
+        f"batch, {BATCH * iters / seconds:.1f} frames/s; with a synchronise between stages: "
+        f"pyramid with stacks {1e3 * t_stage[0] / iters:.2f} ms, selection + refinement "
+        f"{1e3 * t_stage[1] / iters:.2f} ms, compaction + orientation stage "
+        f"{1e3 * t_stage[2] / iters:.2f} ms, pair compaction + descriptor stage "
+        f"{1e3 * t_stage[3] / iters:.2f} ms per batch [{smi}]"
+    )
+
+    octave_bound_ms = sum(b[0] for b in octave_bounds)
+    sample_bound_ms = sum(b[0] for b in sample_bounds)
     record = {
         "kernels": [
             {
                 "name": "fused_octave",
                 "route": "cuda",
-                "source": KERNEL_SOURCE,
-                "replaces": REPLACES,
-                "launches": launches,
+                "source": CSRC + "octave.cu",
+                "replaces": PALLAS + "octave.py:437",
+                "launches": describe_launches["fused_octave"],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
-            }
+                "bound_ms": octave_bound_ms,
+                "bound_by": max(octave_bounds)[1],
+                "library_ms": None,
+            },
+            {
+                "name": "window_sample_pair",
+                "route": "cuda",
+                "source": CSRC + "describe.cu",
+                "replaces": PALLAS + "describe.py:288",
+                "launches": describe_launches["window_sample_pair"],
+                "max_abs_err": sample_err,
+                "ms": sum(sample_ms),
+                "plain_ms": sum(sample_plain_ms),
+                "bound_ms": sample_bound_ms,
+                "bound_by": max(sample_bounds)[1],
+                "library_ms": None,
+            },
+            {
+                "name": "blur_fused",
+                "route": "cuda",
+                "source": CSRC + "blur.cu",
+                "replaces": PALLAS + "blur.py:98",
+                "launches": blur_launches,
+                "max_abs_err": blur_err,
+                "ms": blur_ms,
+                "plain_ms": blur_plain_ms,
+                "bound_ms": blur_bound,
+                "bound_by": _bound(blur_bytes, blur_flop)[1],
+                "library_ms": blur_library_ms,
+            },
         ]
     }
     print(json.dumps(record))

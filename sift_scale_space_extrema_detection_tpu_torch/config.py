@@ -52,7 +52,7 @@ class SiftConfig:
     # Floor of the per-octave capacity schedule.
     min_keypoints_per_trio: int = 64
 
-    # --- descriptor extension (not yet ported; kept for round-trips) ------
+    # --- descriptor extension ----------------------------------------------
     lambda_ori: float = 1.5
     lambda_descr: float = 6.0
     n_orientation_bins: int = 36
@@ -68,6 +68,8 @@ class SiftConfig:
     describe_compaction: float = 0.5
     descriptor_pair_compaction: float = 0.75
     upright: bool = False
+    # Chooses between two samplers in the JAX package; the port has one,
+    # and keeps the field so that a configuration round-trips.
     window_describe: bool = True
 
     def __post_init__(self):

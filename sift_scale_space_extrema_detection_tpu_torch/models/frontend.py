@@ -1,10 +1,16 @@
-"""End-to-end SIFT detection: scale space → DoG → extrema → refinement.
+"""End-to-end SIFT frontend: scale space → DoG → extrema → refinement →
+orientations and descriptors.
 
-The port of the JAX package's detect path (``models/frontend.py`` with
-``blur="fused"``): every octave goes through the fused octave kernel
-(``ops/kernels/octave.py``), which emits the DoG planes, the next
-octave's seed and the packed extrema masks; selection and Newton
-refinement are tensor code over the whole batch. Tensors stay on the
+The port of the JAX package's ``models/frontend.py`` with ``blur="fused"``:
+every octave goes through the fused octave kernel
+(``ops/kernels/octave.py``), which emits the DoG planes, the next octave's
+seed, the packed extrema masks and, for the describe path, the Gaussian
+stack; selection, Newton refinement and the describe stages' histogram math
+are tensor code over the whole batch, and the describe stages sample
+through the window-sampling kernel (``ops/kernels/describe.py``). The
+entry points are fused-only. :func:`build_scale_space` is the scale space
+built blur by blur, with the stand-alone blur kernel
+(``ops/kernels/blur.py``) as one of its strategies. Tensors stay on the
 device of the input; a CPU input runs the kernels' plain versions.
 """
 
@@ -14,10 +20,28 @@ import torch
 
 from ..config import SiftConfig
 from ..core.types import Extrema, Keypoints, concat_keypoints
+from ..ops.descriptor import (
+    DescribedKeypoints,
+    concat_described,
+    describe_compact,
+    describe_octave,
+)
+from ..ops.dog import difference_of_gaussians
 from ..ops.extrema import select_refine_candidates
+from ..ops.gaussian import blur_separable
+from ..ops.kernels.blur import blur_fused
 from ..ops.kernels.octave import fused_octave
 from ..ops.refine import refine_keypoints
-from ..ops.resize import downsample2x_nn
+from ..ops.resize import downsample2x_nn, upsample2x_nn
+
+# ``"cuda"``, the default, is the stand-alone blur kernel, the counterpart of
+# the JAX package's ``"pallas"`` strategy (for a CPU tensor it runs the tap
+# loop); ``"separable"`` is the plain tap loop on any device, the kernel's
+# reference.
+BLUR_STRATEGIES = {
+    "cuda": blur_fused,
+    "separable": blur_separable,
+}
 
 
 def _as_unit_float(images: torch.Tensor) -> torch.Tensor:
@@ -36,48 +60,89 @@ def _as_unit_float(images: torch.Tensor) -> torch.Tensor:
 
 
 def build_pyramid_fused(
-    images: torch.Tensor, cfg: SiftConfig, octave_fn=fused_octave
-) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    images: torch.Tensor,
+    cfg: SiftConfig,
+    octave_fn=fused_octave,
+    emit_scales: bool = False,
+):
     """Per-octave DoG stacks and packed extrema masks of ``(B, H, W)`` images.
 
-    The detect path of the JAX ``build_pyramid_fused`` (``emit_scales=False,
-    emit_masks=True``): the Gaussian stacks are not returned. Octave 0 is
+    The JAX ``build_pyramid_fused`` with ``emit_masks=True``. Octave 0 is
     the 2× upsampled input, upsampled inside the kernel; octave ``o ≥ 1``
     starts from the previous octave's seed scale decimated 2×, taken
     unblurred as its scale 0 (reference/background.js:84, :110-143).
     Returns ``dogs[o]`` ``(B, S-1, H_o, W_o)`` float32 and ``masks[o]``
-    ``(B, H_o, W_o)``. ``octave_fn`` is :func:`fused_octave` or a function
-    with its contract, such as its plain version.
+    ``(B, H_o, W_o)``; with ``emit_scales`` a third list follows, the
+    Gaussian stacks ``(B, S, H_o, W_o)`` that the describe stages sample.
+    ``octave_fn`` is :func:`fused_octave` or a function with its contract,
+    such as its plain version.
     """
     base = images.to(torch.float32).contiguous()
-    dogs, masks = [], []
+    dogs, masks, stacks = [], [], []
     for octave in range(cfg.num_octaves):
         sigmas = [
             None if (octave > 0 and s == 0) else cfg.offset_sigma(octave, s)
             for s in range(cfg.scales_per_octave_total)
         ]
-        dog, seed, mask = octave_fn(
+        dog, seed, mask, *scales = octave_fn(
             base,
             sigmas,
             cfg.scales_per_octave,
             cfg.contrast_prefilter_threshold,
             upsample2x=octave == 0,
+            emit_scales=emit_scales,
         )
         dogs.append(dog)
         masks.append(mask)
+        stacks.extend(scales)
         base = downsample2x_nn(seed).contiguous()
+    if emit_scales:
+        return dogs, masks, stacks
     return dogs, masks
 
 
-def detect_from_dog(
+def build_scale_space(
+    images: torch.Tensor, cfg: SiftConfig, blur: str = "cuda"
+) -> list[torch.Tensor]:
+    """Gaussian scale space, one blur at a time (reference/background.js:71-237).
+
+    ``images``: ``(..., H, W)`` float32 grayscale in [0, 1]. Returns one
+    stack per octave, ``(..., spo+3, H_o, W_o)``. Octave 0 blurs every
+    scale from the 2×-upsampled image with the semigroup offset sigma;
+    octaves ≥ 1 seed from the previous octave's scale ``spo`` decimated 2×,
+    taken unblurred as scale 0 (background.js:110-143). ``blur`` names one
+    of :data:`BLUR_STRATEGIES`.
+    """
+    blur_fn = BLUR_STRATEGIES[blur]
+    octaves: list[torch.Tensor] = []
+    base = upsample2x_nn(images).contiguous()
+    for octave in range(cfg.num_octaves):
+        first = 0
+        scales = []
+        if octave > 0:
+            seed = octaves[octave - 1][..., cfg.scales_per_octave, :, :]
+            base = downsample2x_nn(seed).contiguous()
+            scales.append(base)
+            first = 1
+        for s in range(first, cfg.scales_per_octave_total):
+            scales.append(blur_fn(base, cfg.offset_sigma(octave, s)))
+        octaves.append(torch.stack(scales, dim=-3))
+    return octaves
+
+
+def build_dog(scale_space: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Per-octave DoG stacks ``(..., spo+2, H_o, W_o)``."""
+    return [difference_of_gaussians(octave) for octave in scale_space]
+
+
+def detect_octaves(
     dogs: list[torch.Tensor], cfg: SiftConfig, masks: list[torch.Tensor]
-) -> tuple[Keypoints, list[Extrema]]:
-    """Candidate selection and refinement over per-octave DoG stacks.
+) -> tuple[list[Keypoints], list[Extrema]]:
+    """Candidate selection and refinement, octave by octave.
 
     ``dogs[o]``: ``(B, D, H_o, W_o)``; ``masks[o]``: ``(B, H_o, W_o)``.
-    Returns keypoints ``(B, N)`` (all octaves' slots concatenated) and one
-    ``Extrema`` per octave — the refinement candidates with the uncapped
-    per-trio counters.
+    Returns one ``Keypoints`` ``(B, n_o)`` and one ``Extrema`` per octave —
+    the refinement candidates with the uncapped per-trio counters.
     """
     extrema = [
         select_refine_candidates(m, d, cfg, cfg.refine_capacity(octave))
@@ -87,6 +152,15 @@ def detect_from_dog(
         refine_keypoints(d, e, octave, cfg)
         for octave, (d, e) in enumerate(zip(dogs, extrema))
     ]
+    return keypoints, extrema
+
+
+def detect_from_dog(
+    dogs: list[torch.Tensor], cfg: SiftConfig, masks: list[torch.Tensor]
+) -> tuple[Keypoints, list[Extrema]]:
+    """:func:`detect_octaves` with all octaves' slots concatenated:
+    keypoints ``(B, N)`` and one ``Extrema`` per octave."""
+    keypoints, extrema = detect_octaves(dogs, cfg, masks)
     return concat_keypoints(keypoints), extrema
 
 
@@ -108,6 +182,37 @@ def detect(image: torch.Tensor, cfg: SiftConfig) -> tuple[Keypoints, list[Extrem
     return _first(keypoints), [_first(e) for e in extrema]
 
 
+def detect_and_describe_batched(
+    images: torch.Tensor, cfg: SiftConfig
+) -> DescribedKeypoints:
+    """Batched frontend: ``(B, H, W)`` grayscale → oriented keypoints with
+    128-D descriptors, fields ``(B, N)``.
+
+    Detection as in :func:`detect_batched`, with the Gaussian stacks kept;
+    then one compacting describe pass over the whole batch
+    (``ops/descriptor.py::describe_compact``), or with
+    ``cfg.compact_describe`` off the per-octave path over every slot.
+    """
+    dogs, masks, stacks = build_pyramid_fused(
+        _as_unit_float(images), cfg, emit_scales=True
+    )
+    keypoints, _ = detect_octaves(dogs, cfg, masks)
+    if cfg.compact_describe:
+        return describe_compact(stacks, keypoints, cfg)
+    return concat_described(
+        [
+            describe_octave(stack, kp, octave, cfg)
+            for octave, (stack, kp) in enumerate(zip(stacks, keypoints))
+        ]
+    )
+
+
+def detect_and_describe(image: torch.Tensor, cfg: SiftConfig) -> DescribedKeypoints:
+    """Single-image frontend: ``(H, W)`` grayscale → described keypoints
+    ``(N,)``, as a batch of one."""
+    return _first(detect_and_describe_batched(image[None], cfg))
+
+
 def _first(result):
-    """The batch's only image of a ``Keypoints`` or ``Extrema``."""
+    """The batch's only image of a result dataclass."""
     return type(result)(**{k: v[0] for k, v in vars(result).items()})

@@ -84,6 +84,26 @@ def unpack_mask_codes(packed: torch.Tensor, n_trios: int) -> torch.Tensor:
     return (packed.to(torch.int32).unsqueeze(-3) >> shifts[:, None, None]) & 3
 
 
+def first_k_set_indices(
+    mask: torch.Tensor, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Indices of the first ``capacity`` set bits along the last axis, in order.
+
+    ``mask``: ``(..., N)`` bool. Returns ``idx`` ``(..., capacity)`` int64,
+    ``valid`` ``(..., capacity)`` bool and ``total`` ``(...,)`` int32, the
+    uncapped count of set bits. Slot ``j`` holds the position of the
+    ``(j+1)``-th set bit, found by a binary search of the running count: no
+    sort and no host sync. Invalid slots hold index 0.
+    """
+    running = mask.cumsum(dim=-1, dtype=torch.int32)
+    slot = torch.arange(capacity, dtype=torch.int32, device=mask.device)
+    wanted = (slot + 1).expand(*mask.shape[:-1], capacity).contiguous()
+    idx = torch.searchsorted(running, wanted)  # first i with running[i] > j
+    total = running[..., -1]
+    valid = slot < total.unsqueeze(-1)
+    return torch.where(valid, idx, 0), valid, total
+
+
 def select_refine_candidates(
     packed: torch.Tensor, dog: torch.Tensor, cfg: SiftConfig, capacity: int
 ) -> Extrema:
@@ -93,8 +113,7 @@ def select_refine_candidates(
 
     ``packed``: ``(B, H, W)``; ``dog``: ``(B, D, H, W)``. Slot ``j`` holds
     the ``(j+1)``-th set bit of the flattened ``(T, H, W)`` candidate
-    volume, found by a binary search of its running count: no sort and no
-    host sync. Invalid slots are parked at ``(scale 1, y 1, x 1)`` with
+    volume (:func:`first_k_set_indices`). Invalid slots are parked at ``(scale 1, y 1, x 1)`` with
     ``value`` read from the DoG there. The per-trio counters are uncapped,
     so candidates beyond capacity stay observable.
     """
@@ -110,12 +129,7 @@ def select_refine_candidates(
     cand = codes == 1
     n_cand = cand.sum(dim=(2, 3), dtype=torch.int32)
     n_low = (codes == 2).sum(dim=(2, 3), dtype=torch.int32)
-    running = cand.reshape(b, -1).cumsum(dim=1, dtype=torch.int32)
-    slot = torch.arange(capacity, dtype=torch.int32, device=packed.device)
-    wanted = (slot + 1).expand(b, capacity).contiguous()
-    idx = torch.searchsorted(running, wanted)  # first i with running[i] > j
-    valid = slot < n_cand.sum(dim=1, keepdim=True)
-    idx = torch.where(valid, idx, 0)
+    idx, valid, _ = first_k_set_indices(cand.reshape(b, -1), capacity)
     trio = idx // plane
     rem = idx - trio * plane
     y = torch.where(valid, rem // w, 1).to(torch.int32)

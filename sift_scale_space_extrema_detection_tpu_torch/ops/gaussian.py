@@ -81,3 +81,17 @@ def blur_separable(image: torch.Tensor, sigma: float) -> torch.Tensor:
     for t in range(1, len(taps)):
         out = out + padded[..., t : t + h, :] * taps[t]
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def device_taps(sigmas: tuple, device: torch.device):
+    """The float32 taps of every sigma concatenated on ``device``, with each
+    sigma's offset into them and its radius; cached per tuple of sigmas (the
+    256 most recent), since a tensor built from host data is a blocking
+    copy on CUDA. ``None``
+    stands for the unblurred image: the one-tap identity (``v * 1.0f == v``)."""
+    taps = [(1.0,) if s is None else taps_f32(s) for s in sigmas]
+    offsets = np.cumsum([0] + [len(t) for t in taps[:-1]]).tolist()
+    radii = [(len(t) - 1) // 2 for t in taps]
+    flat = [v for t in taps for v in t]
+    return torch.tensor(flat, dtype=torch.float32, device=device), offsets, radii

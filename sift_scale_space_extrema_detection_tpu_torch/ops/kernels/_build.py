@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use; load them with ctypes.
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
-one ``nvcc`` call builds them in seconds into ``build/`` beside this file
-(listed in ``.gitignore``). The library is named by a hash of the sources
-and flags, so an edited source is rebuilt and a finished build is reused.
+one ``nvcc`` call (its ``--threads`` compiles the files side by side) builds
+them in seconds into ``build/`` beside this file (listed in ``.gitignore``).
+The library is named by a hash of the sources, headers and flags, so an
+edited source is rebuilt and a finished build is reused.
 ``-fmad=false`` keeps every product and sum separately rounded, which is
 what makes the kernels agree bit for bit with their plain PyTorch versions.
 
@@ -28,6 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17",
     "-O3",
     "-fmad=false",
+    "--threads",  # compile the source files side by side,
+    "0",  # with as many jobs as there are cores
     "-shared",
     "-Xcompiler",
     "-fPIC",
@@ -36,12 +39,22 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)  # host int array
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _SIGNATURES = {  # name: (argtypes, restype)
     # base, batch, h, w, upsample2x, taps, tap_offsets, radii, n_scales,
     # spo, contrast_thr, stack, tmp, dog, seed, masks, mask16, stream
     "sift_fused_octave": (
         [_P, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, ctypes.c_float,
          _P, _P, _P, _P, _P, _I, _P],
+        _I,
+    ),
+    # src, batch, h, w, taps, radius, tmp, dst, stream
+    "sift_blur": ([_P, _I, _I, _I, _P, _I, _P, _P, _P], _I),
+    # stacks, heights, widths, n_octaves, batch, n_scales, slots, ys, xs,
+    # gy, gx, n_slots, n_samples, stream
+    "sift_window_sample_pair": (
+        [_PP, _IP, _IP, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
+         _I, _P],
         _I,
     ),
     "sift_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -69,8 +82,9 @@ def load_kernels() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library."""
     nvcc = _find_nvcc()
     sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in sources)
+        b"".join(p.read_bytes() for p in sources + headers)
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libsift_kernels_{digest}.so"
@@ -94,3 +108,10 @@ def load_kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise ``RuntimeError`` when an entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.sift_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: kernel launch failed: CUDA error {rc} ({msg})")

@@ -21,21 +21,22 @@ kernel's stripe-major DoG is a TPU write-DMA workaround, not part of it):
   ``masks`` ``(B, H, W)`` (int16 up to 8 trios, else int32) holding trio
   ``t``'s 2-bit code in bits ``[2t, 2t+2)`` (see
   ``ops/extrema.py::pack_extrema_codes``).
+- With ``emit_scales`` a fourth result follows: the Gaussian stack
+  ``(B, S, H, W)`` float32, which the describe stages sample.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..dog import difference_of_gaussians
 from ..extrema import mask_dtype, pack_extrema_codes
-from ..gaussian import blur_separable, taps_f32
+from ..gaussian import blur_separable, device_taps
 from ..resize import upsample2x_nn
-from ._build import load_kernels
+from ._build import check_launch, load_kernels
 
 _MAX_GRID_Z = 65535  # CUDA's limit on the grid's z extent (the batch)
 
@@ -51,33 +52,24 @@ def _check_base(base: torch.Tensor) -> None:
         raise ValueError("fused_octave: base must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _device_taps(sigmas: tuple, device: torch.device):
-    """All scales' float32 taps concatenated on ``device``, with each
-    scale's offset and radius; made once per octave geometry, since a
-    tensor built from host data is a blocking copy on CUDA. The unblurred
-    base is the one-tap identity blur (``v * 1.0f == v``)."""
-    taps = [(1.0,) if s is None else taps_f32(s) for s in sigmas]
-    offsets = np.cumsum([0] + [len(t) for t in taps[:-1]]).tolist()
-    radii = [(len(t) - 1) // 2 for t in taps]
-    flat = [v for t in taps for v in t]
-    return torch.tensor(flat, dtype=torch.float32, device=device), offsets, radii
-
-
 def fused_octave_reference(
     base: torch.Tensor,
     sigmas: list[float | None],
     spo: int,
     contrast_thr: float,
     upsample2x: bool = False,
+    emit_scales: bool = False,
 ):
     """Plain PyTorch version of :func:`fused_octave`, on any device."""
     _check_base(base)
     if upsample2x:
         base = upsample2x_nn(base)
     planes = [base if s is None else blur_separable(base, s) for s in sigmas]
-    dog = difference_of_gaussians(torch.stack(planes, dim=1))
+    scales = torch.stack(planes, dim=1)
+    dog = difference_of_gaussians(scales)
     masks = pack_extrema_codes(dog, float(np.float32(contrast_thr)))
+    if emit_scales:
+        return dog, planes[spo], masks, scales
     return dog, planes[spo], masks
 
 
@@ -87,6 +79,7 @@ def fused_octave(
     spo: int,
     contrast_thr: float,
     upsample2x: bool = False,
+    emit_scales: bool = False,
 ):
     """All scales, DoG, seed and extrema masks of one octave (see module).
 
@@ -96,7 +89,9 @@ def fused_octave(
     """
     _check_base(base)
     if base.device.type == "cpu":
-        return fused_octave_reference(base, sigmas, spo, contrast_thr, upsample2x)
+        return fused_octave_reference(
+            base, sigmas, spo, contrast_thr, upsample2x, emit_scales
+        )
     if base.device.type != "cuda":
         raise ValueError(
             f"fused_octave: no kernel for device {base.device}; "
@@ -114,7 +109,7 @@ def fused_octave(
     if n_trios > 16:
         raise ValueError(f"fused_octave: {n_trios} trios do not fit 32 mask bits")
     dev = base.device
-    taps_dev, offsets, radii = _device_taps(tuple(sigmas), dev)
+    taps_dev, offsets, radii = device_taps(tuple(sigmas), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     stack = torch.empty((b, n_scales, h, w), **f32)
     tmp = torch.empty((b, h, w), **f32)
@@ -133,10 +128,10 @@ def fused_octave(
             seed.data_ptr(), masks.data_ptr(), int(mdtype == torch.int16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        msg = lib.sift_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_octave: kernel launch failed: CUDA error {rc} ({msg})")
+    check_launch(lib, rc, "fused_octave")
     fused_octave.launches += 1
+    if emit_scales:
+        return dog, seed, masks, stack
     return dog, seed, masks
 
 

@@ -1,4 +1,5 @@
-"""The port's detect path end to end against the JAX package's kernel path.
+"""The port's detect and describe paths end to end against the JAX package's
+kernel path.
 
 The JAX reference is its fused-kernel path: ``build_pyramid_fused`` with
 the Pallas kernel in interpret mode, then ``detect_from_dog`` per image.
@@ -6,6 +7,8 @@ the Pallas kernel in interpret mode, then ``detect_from_dog`` per image.
 separable fallback, so it is not the reference for the kernel path.)
 The same numpy arrays go into both packages.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,11 @@ import torch
 
 from sift_scale_space_extrema_detection_tpu.config import SiftConfig as JaxConfig
 from sift_scale_space_extrema_detection_tpu.models import frontend as jfront
+from sift_scale_space_extrema_detection_tpu.ops import descriptor as jdesc
+from sift_scale_space_extrema_detection_tpu.ops import extrema as jextrema
+from sift_scale_space_extrema_detection_tpu.ops import refine as jrefine
 import sift_scale_space_extrema_detection_tpu_torch as port
+from tests.torch_port_helpers import textured_images
 
 torch.set_num_threads(2)
 
@@ -129,3 +136,101 @@ def test_output_types(run):
         assert getattr(got, field).dtype == torch.float32, field
     assert got.valid.dtype == torch.bool
     assert all(e.value.dtype == torch.float32 for e in got_ex)
+
+
+# --- detect + describe end to end -------------------------------------------
+
+# The JAX package's own parity bars for a second implementation of its
+# frontend (slot agreement, p99 position delta in px, descriptor cosine).
+SLOT_AGREEMENT = 0.999
+P99_PX = 0.1
+MIN_COSINE = 0.999
+
+
+@pytest.fixture(scope="module")
+def described():
+    """2 textured 96×128 frames through both packages. JAX: the Pallas octave
+    kernel in interpret mode with its Gaussian stacks, selection and
+    refinement per image, then the gather-path ``describe_compact``."""
+    images = textured_images(13, 2, 96, 128)
+    cfg = JaxConfig(num_octaves=3, max_keypoints_per_trio=128)
+    stacks, dogs, masks = jfront.build_pyramid_fused(
+        jnp.asarray(images), cfg, emit_scales=True, emit_masks=True, interpret=True
+    )
+    n = cfg.num_octaves
+
+    def one(*arrays):
+        stacks, dogs, masks = arrays[:n], arrays[n : 2 * n], arrays[2 * n :]
+        keypoints = [
+            jrefine.refine_keypoints(
+                d, jextrema.select_refine_candidates(m, d, cfg, cfg.refine_capacity(o)), o, cfg
+            )
+            for o, (d, m) in enumerate(zip(dogs, masks))
+        ]
+        return jdesc.describe_compact(list(stacks), keypoints, cfg)
+
+    want = jax.jit(jax.vmap(one))(*stacks, *dogs, *masks)
+    pcfg = port.from_reference_config(cfg)
+    got = port.detect_and_describe_batched(torch.from_numpy(images), pcfg)
+    return images, pcfg, want, got
+
+
+def test_detect_and_describe_batched_matches_jax(described):
+    _, _, want, got = described
+    want_valid, got_valid = np.asarray(want.valid), got.valid.numpy()
+    assert got_valid.shape == want_valid.shape and want_valid.sum() > 30
+    both = got_valid & want_valid
+    same_slot = (got_valid == want_valid) & (
+        ~both
+        | (
+            (got.octave.numpy() == np.asarray(want.octave))
+            & (got.scale_level.numpy() == np.asarray(want.scale_level))
+        )
+    )
+    assert same_slot.mean() >= SLOT_AGREEMENT
+    delta = np.hypot(
+        got.abs_x.numpy()[both] - np.asarray(want.abs_x)[both],
+        got.abs_y.numpy()[both] - np.asarray(want.abs_y)[both],
+    )
+    assert np.quantile(delta, 0.99) <= P99_PX
+    d_got, d_want = got.descriptor.numpy()[both], np.asarray(want.descriptor)[both]
+    cosine = (d_got * d_want).sum(-1) / (
+        np.linalg.norm(d_got, axis=-1) * np.linalg.norm(d_want, axis=-1)
+    )
+    assert cosine.min() >= MIN_COSINE
+    # Measured here (52 valid pairs): all slots agree, positions within
+    # 1.2e-4 px, θ within 6e-6 rad, descriptors within 1.4e-5, cosine
+    # ≥ 0.9999999; the pyramids differ by float32 ulps (see POS_ATOL).
+    assert delta.max() <= 1e-3 and cosine.min() >= 0.99999
+
+
+def test_detect_and_describe_single_image_equals_batch_row(described):
+    images, pcfg, _, got = described
+    one = port.detect_and_describe(torch.from_numpy(images[1]), pcfg)
+    assert one.valid.shape == (pcfg.descriptor_pair_capacity(),)
+    for field in ("valid", "octave", "abs_x", "abs_y", "theta", "descriptor"):
+        assert torch.equal(getattr(one, field), getattr(got, field)[1]), field
+
+
+def test_per_octave_describe_path_holds_the_same_keypoints(described):
+    images, pcfg, _, got = described
+    per_octave = port.detect_and_describe_batched(
+        torch.from_numpy(images), dataclasses.replace(pcfg, compact_describe=False)
+    )
+    total = sum(pcfg.refine_capacity(o) for o in range(pcfg.num_octaves))
+    assert per_octave.valid.shape == (2, total * pcfg.max_orientations_per_keypoint)
+    for b in range(2):
+        v, w = got.valid[b], per_octave.valid[b]
+        assert torch.equal(got.theta[b][v], per_octave.theta[b][w])
+        assert torch.equal(got.descriptor[b][v], per_octave.descriptor[b][w])
+
+
+def test_describe_refuses_tf32_matrix_products_on_cuda(monkeypatch):
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import (
+        _require_full_float32_matmul,
+    )
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    _require_full_float32_matmul(torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        _require_full_float32_matmul(torch.device("cuda", 0))

@@ -10,6 +10,10 @@ import torch
 
 import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+    window_sample_pair,
+)
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
 
 torch.set_num_threads(2)
@@ -30,6 +34,9 @@ def test_port_runs_without_importing_jax():
         image = torch.from_numpy((rng.random((24, 32)) * 255).astype(np.uint8))
         kp, ex = port.detect(image, port.SiftConfig(num_octaves=2))
         assert kp.valid.shape == (kp.capacity,)
+        described = port.detect_and_describe(image, port.SiftConfig(num_octaves=2))
+        assert described.descriptor.shape == (described.capacity, 128)
+        port.build_scale_space(image.float(), port.SiftConfig(num_octaves=2), "cuda")
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not leaked, leaked
         assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
@@ -79,3 +86,70 @@ def test_octave_smaller_than_two_pixels_raises():
     # 8x8 input: octave 0 is 16x16, octave 4 is 1x1.
     with pytest.raises(ValueError, match="fewer octaves"):
         port.detect(torch.rand(8, 8), port.SiftConfig(num_octaves=5))
+
+
+def test_blur_fused_has_no_fallback_for_other_devices():
+    with pytest.raises(ValueError, match="no kernel for device"):
+        blur_fused(torch.empty((1, 8, 8), device="meta"), 1.2)
+
+
+@pytest.mark.parametrize(
+    "image, error",
+    [
+        (torch.zeros((1, 8, 8), dtype=torch.float64), TypeError),
+        (torch.zeros((8,)), ValueError),
+        (torch.zeros((1, 8, 16))[..., ::2], ValueError),
+    ],
+    ids=["float64", "1d", "strided"],
+)
+def test_blur_fused_checks_its_input(image, error):
+    with pytest.raises(error):
+        blur_fused(image, 1.2)
+
+
+def _sample_args(device="cpu"):
+    stacks = [torch.zeros((1, 4, 8, 8), device=device), torch.zeros((1, 4, 4, 4), device=device)]
+    slots = torch.zeros((3, 4), dtype=torch.int32, device=device)
+    coords = torch.zeros((3, 5), device=device)
+    return stacks, slots, coords, coords.clone()
+
+
+def test_window_sample_pair_has_no_fallback_for_other_devices():
+    with pytest.raises(ValueError, match="no kernel for device"):
+        window_sample_pair(*_sample_args("meta"))
+
+
+def _with(index, value):
+    args = list(_sample_args())
+    args[index] = value
+    return args
+
+
+@pytest.mark.parametrize(
+    "args, error",
+    [
+        (_with(2, torch.zeros((3, 5), dtype=torch.float64)), TypeError),
+        (_with(1, torch.zeros((3, 4), dtype=torch.int64)), TypeError),
+        (_with(0, [torch.zeros((1, 4, 8, 8), dtype=torch.float16)]), TypeError),
+        (_with(3, torch.zeros((3, 10))[:, ::2]), ValueError),
+        (_with(0, [torch.zeros((1, 4, 8, 16))[..., ::2]]), ValueError),
+        (_with(1, torch.zeros((3, 5), dtype=torch.int32)), ValueError),
+        (_with(3, torch.zeros((3, 6))), ValueError),
+        (_with(0, [torch.zeros((1, 4, 8, 8)), torch.zeros((2, 4, 4, 4))]), ValueError),
+        (_with(0, []), ValueError),
+        (_with(1, torch.zeros((3, 4), dtype=torch.int32, device="meta")), ValueError),
+    ],
+    ids=[
+        "float64_coords", "int64_slots", "float16_stack", "strided_coords",
+        "strided_stack", "slot_columns", "coords_shapes", "stack_batches",
+        "no_stack", "mixed_devices",
+    ],
+)
+def test_window_sample_pair_checks_its_input(args, error):
+    with pytest.raises(error):
+        window_sample_pair(*args)
+
+
+def test_unknown_blur_strategy_raises():
+    with pytest.raises(KeyError):
+        port.build_scale_space(torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "matmul")
