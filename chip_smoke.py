@@ -12,16 +12,20 @@ Phases (any failure exits non-zero and prints no result):
 2. build — the CUDA kernels are built from the checkout's sources.
 3. fused octave vs plain — at every octave geometry of the main path, on a
    few full-size images, the kernel against its plain PyTorch version on
-   the same CUDA tensors: DoG and seed max abs diff <= 1e-6, masks equal
-   on >= 99.99 % of pixels.
+   the same CUDA tensors, without and with ``emit_scales``: DoG, seed and
+   Gaussian stack max abs diff <= 1e-6, masks equal on >= 99.99 % of pixels.
 4. the detect path — ``detect_batched`` on 64 × 480×640 frames (the bench
-   recipe) at 4 octaves × 5 scales: each octave launches the kernel, valid
-   keypoints exist and are finite, and the same batch through the plain
-   version agrees (slot agreement >= 0.999, p99 position delta <= 0.1 px).
+   recipe) at 4 octaves × 5 scales, handed once as a CPU tensor with no
+   ``device`` (the results must lie on the card): each octave launches the
+   kernel, valid keypoints exist and are finite, and the same batch through
+   the plain version agrees (slot agreement >= 0.999, p99 position delta
+   <= 0.1 px).
 5. timings of the fused octave — per octave at batch 64, kernel against
-   plain (CUDA events, in turns plain/kernel/kernel/plain), and the whole
-   ``detect_batched`` in frames/s (host clock around synchronised runs).
-6. the describe path — ``detect_and_describe_batched`` on the same batch:
+   plain (CUDA events, in turns plain/kernel/kernel/plain), the kernel with
+   ``emit_scales`` beside it, and the whole ``detect_batched`` in frames/s
+   (host clock around synchronised runs).
+6. the describe path — ``detect_and_describe_batched`` on the same batch
+   (once as a CPU tensor with no ``device``, results on the card):
    the fused octave launches per octave, the window-sampling kernel per
    describe stage and the stand-alone blur never; valid descriptors exist,
    are finite and have unit norm; the same batch through the plain versions
@@ -43,13 +47,29 @@ Phases (any failure exits non-zero and prints no result):
     and the blur per (octave, scale) at batch 64 (CUDA events, kernel
     against plain in turns; the blur also against two cuDNN ``conv2d``
     calls), and ``detect_and_describe_batched`` in frames/s with its stages.
+11. the clamped mode — the octave and blur kernels are each two
+    instantiations, and the 4-octave paths above plan only the unclamped
+    one. ``detect_batched`` at the default configuration (5 octaves × 3
+    scales) on the same batch launches the octave kernel five times, once in
+    the clamped mode (octave 4: radius 116 on 60×80), and agrees with the
+    plain version (bars of phase 4). Then that octave's 64 bases through the
+    octave kernel, and its largest blur through the blur kernel, each planned
+    clamped, counted as clamped, equal to the plain version (max abs diff
+    <= 1e-6, masks >= 99.99 %) and timed against it.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
 once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s.
 
+The operation peak counts a fused multiply-add as two operations; the blur
+kernels may not fuse (it would change the rounding), so for them half that
+rate is the card's real ceiling. The bound keeps the published peak.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the kernels' JSON record.
+the kernels' JSON record, in which every number but ``bound_ms`` was
+measured in this run. Each kernel's time before the octave and blur kernels
+became one launch on shared-memory tiles is printed beside its timing, on
+earlier lines.
 """
 
 from __future__ import annotations
@@ -75,6 +95,11 @@ NORM_ATOL = 1e-3
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 SAMPLE_FLOP = 40  # per gradient sample: 8 differences, 8 halvings, 2 blends of 9, clamps
+# Each kernel's time at these shapes before the octave and blur kernels
+# became one launch on shared-memory tiles (NVIDIA H100 80GB HBM3, 700.00 W,
+# this script), and ``detect_batched``'s peak device memory then.
+PREV_MS = {"fused_octave": 17.59, "window_sample_pair": 0.71, "blur_fused": 14.77}
+PREV_DETECT_PEAK_GIB = 7.76
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -220,7 +245,10 @@ def main() -> int:
         taps_f32,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import (
+        blur_fused,
+        blur_tile_plan,
+    )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
         window_sample_pair,
         window_sample_pair_reference,
@@ -228,6 +256,7 @@ def main() -> int:
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
         fused_octave,
         fused_octave_reference,
+        octave_tile_plan,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.resize import (
         downsample2x_nn,
@@ -241,7 +270,8 @@ def main() -> int:
 
     cfg = SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
     spo, thr = cfg.scales_per_octave, cfg.contrast_prefilter_threshold
-    images = torch.from_numpy(_make_batch(BATCH, HEIGHT, WIDTH)).to(device)
+    images_cpu = torch.from_numpy(_make_batch(BATCH, HEIGHT, WIDTH))
+    images = images_cpu.to(device)
 
     # --- 3. kernel vs plain at every octave geometry ----------------------
     max_err = 0.0
@@ -249,27 +279,37 @@ def main() -> int:
     for octave in range(cfg.num_octaves):
         sigmas = _octave_sigmas(cfg, octave)
         up2 = octave == 0
-        got = fused_octave(base, sigmas, spo, thr, upsample2x=up2)
-        want = fused_octave_reference(base, sigmas, spo, thr, upsample2x=up2)
-        torch.cuda.synchronize()
-        dog_err = (got[0] - want[0]).abs().max().item()
-        seed_err = (got[1] - want[1]).abs().max().item()
-        same = (got[2] == want[2]).float().mean().item()
-        _require(got[2].dtype == want[2].dtype, f"octave {octave} mask dtype")
-        _say(
-            f"kernel vs plain, octave {octave} {tuple(got[0].shape)}: dog max "
-            f"abs diff {dog_err:.3g}, seed {seed_err:.3g}, masks equal on "
-            f"{100 * same:.4f} % of pixels"
-        )
-        _require(dog_err <= MAX_ABS_ERR and seed_err <= MAX_ABS_ERR,
-                 f"octave {octave} DoG/seed differ by more than {MAX_ABS_ERR}")
-        _require(same >= MASK_AGREEMENT, f"octave {octave} masks disagree")
-        max_err = max(max_err, dog_err, seed_err)
+        want = fused_octave_reference(base, sigmas, spo, thr, upsample2x=up2, emit_scales=True)
+        for emit_scales in (False, True):
+            got = fused_octave(base, sigmas, spo, thr, upsample2x=up2, emit_scales=emit_scales)
+            torch.cuda.synchronize()
+            _require(len(got) == 3 + emit_scales, f"octave {octave}: {len(got)} results")
+            dog_err = (got[0] - want[0]).abs().max().item()
+            seed_err = (got[1] - want[1]).abs().max().item()
+            stack_err = (got[3] - want[3]).abs().max().item() if emit_scales else 0.0
+            same = (got[2] == want[2]).float().mean().item()
+            _require(got[2].dtype == want[2].dtype, f"octave {octave} mask dtype")
+            _say(
+                f"kernel vs plain, octave {octave} {tuple(got[0].shape)}, emit_scales="
+                f"{emit_scales}: dog max abs diff {dog_err:.3g}, seed {seed_err:.3g}, "
+                + (f"stack {stack_err:.3g}, " if emit_scales else "")
+                + f"masks equal on {100 * same:.4f} % of pixels"
+            )
+            _require(max(dog_err, seed_err, stack_err) <= MAX_ABS_ERR,
+                     f"octave {octave} DoG/seed/stack differ by more than {MAX_ABS_ERR}")
+            _require(same >= MASK_AGREEMENT, f"octave {octave} masks disagree")
+            max_err = max(max_err, dog_err, seed_err, stack_err)
+        del got
         base = downsample2x_nn(want[1]).contiguous()
 
     # --- 4. the main path ------------------------------------------------
-    detect_batched(images, cfg)  # warm-up: allocator and first launches
+    # Warm-up (allocator, first launches), and the device rule: a CPU tensor
+    # with no ``device`` runs on the card.
+    warm, _ = detect_batched(images_cpu, cfg)
     torch.cuda.synchronize()
+    _require(warm.valid.is_cuda and warm.abs_x.is_cuda,
+             "detect_batched of a CPU tensor did not run on the card")
+    del warm
     torch.cuda.reset_peak_memory_stats()
     fused_octave.launches = 0
     keypoints, extrema = detect_batched(images, cfg)
@@ -283,7 +323,8 @@ def main() -> int:
         f"main path: detect_batched {BATCH}x{HEIGHT}x{WIDTH}, "
         f"{cfg.num_octaves} octaves x {spo} scales: kernel launches {launches}, "
         f"valid keypoints {n_valid} of {BATCH * n_slots} slots, peak device "
-        f"memory {peak_gib:.2f} GiB, reject counts "
+        f"memory {peak_gib:.2f} GiB (with the three-pass kernel and its scratch: "
+        f"{PREV_DETECT_PEAK_GIB} GiB), reject counts "
         f"{keypoints.reject_counts().sum(0).tolist()}"
     )
     _require(launches >= cfg.num_octaves, "the main path did not launch the kernel per octave")
@@ -327,7 +368,7 @@ def main() -> int:
         bases.append(base)
         _, seed, _ = fused_octave(base, _octave_sigmas(cfg, octave), spo, thr, upsample2x=octave == 0)
         base = downsample2x_nn(seed).contiguous()
-    kernel_ms, plain_ms, octave_bounds = [], [], []
+    kernel_ms, plain_ms, scales_ms, octave_bounds = [], [], [], []
     for octave, base in enumerate(bases):
         args = (base, _octave_sigmas(cfg, octave), spo, thr)
         up2 = octave == 0
@@ -349,13 +390,22 @@ def main() -> int:
         k_ms, p_ms, rounds = _in_turns(torch, kernel, reference, 10, 3)
         kernel_ms.append(k_ms)
         plain_ms.append(p_ms)
+        scales_ms.append(
+            _event_ms(torch, lambda: fused_octave(*args, upsample2x=up2, emit_scales=True), 10)
+        )
         _say(
             f"timing octave {octave} {tuple(base.shape)}{' (upsampled 2x)' if up2 else ''}: "
             f"kernel {k_ms:.3f} ms (rounds {rounds[1]:.3f}, {rounds[2]:.3f}), plain "
             f"{p_ms:.3f} ms (rounds {rounds[0]:.3f}, {rounds[3]:.3f}), plain/kernel "
             f"{p_ms / k_ms:.2f}x, bound {octave_bounds[-1][0]:.3f} ms by "
-            f"{octave_bounds[-1][1]} [{smi}]"
+            f"{octave_bounds[-1][1]}; kernel with emit_scales {scales_ms[-1]:.3f} ms [{smi}]"
         )
+    _say(
+        f"timing fused octave, all {cfg.num_octaves} octaves at {BATCH} frames: kernel "
+        f"{sum(kernel_ms):.3f} ms (three-pass kernel: {PREV_MS['fused_octave']} ms), with "
+        f"emit_scales {sum(scales_ms):.3f} ms, plain {sum(plain_ms):.3f} ms, bound "
+        f"{sum(b[0] for b in octave_bounds):.3f} ms [{smi}]"
+    )
 
     iters = 5
     t_pyr = t_tail = 0.0
@@ -385,8 +435,11 @@ def main() -> int:
     del dogs, masks
 
     # --- 6. the describe path ----------------------------------------------
-    detect_and_describe_batched(images, cfg)  # warm-up
+    warm = detect_and_describe_batched(images_cpu, cfg)  # warm-up, from a CPU tensor
     torch.cuda.synchronize()
+    _require(warm.valid.is_cuda and warm.descriptor.is_cuda,
+             "detect_and_describe_batched of a CPU tensor did not run on the card")
+    del warm
     torch.cuda.reset_peak_memory_stats()
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
     described = detect_and_describe_batched(images, cfg)
@@ -573,6 +626,11 @@ def main() -> int:
             f"ms (rounds {rounds[0]:.3f}, {rounds[3]:.3f}), plain/kernel {p_ms / k_ms:.2f}x, "
             f"bound {bound[0]:.4f} ms by {bound[1]} [{smi}]"
         )
+    _say(
+        f"timing window sampling, both stages: kernel {sum(sample_ms):.3f} ms (before the "
+        f"tiled octave and blur kernels, same source: {PREV_MS['window_sample_pair']} ms), "
+        f"plain {sum(sample_plain_ms):.3f} ms [{smi}]"
+    )
     del stages, stacks, keypoints_list
 
     import torch.nn.functional as F
@@ -621,7 +679,8 @@ def main() -> int:
     )
     _say(
         f"timing blur, all {n_blurs} blurs of the scale-space path at {BATCH} "
-        f"frames: kernel {blur_ms:.3f} ms, plain {blur_plain_ms:.3f} ms, two conv2d "
+        f"frames: kernel {blur_ms:.3f} ms (two-pass kernel: {PREV_MS['blur_fused']} ms), "
+        f"plain {blur_plain_ms:.3f} ms, two conv2d "
         f"{blur_library_ms:.3f} ms, bound {blur_bound:.3f} ms [{smi}]"
     )
     del octave_bases
@@ -663,6 +722,88 @@ def main() -> int:
         f"{1e3 * t_stage[1] / iters:.2f} ms, compaction + orientation stage "
         f"{1e3 * t_stage[2] / iters:.2f} ms, pair compaction + descriptor stage "
         f"{1e3 * t_stage[3] / iters:.2f} ms per batch [{smi}]"
+    )
+
+    # --- 11. the clamped mode of the octave and blur kernels -------------------
+    deep_cfg = SiftConfig()  # 5 octaves x 3 scales
+    deep = cfg.num_octaves  # the octave past the paths above
+    detect_batched(images[:4], deep_cfg)  # warm-up
+    fused_octave.launches = fused_octave.clamped_launches = 0
+    deep_keypoints, _ = detect_batched(images, deep_cfg)
+    torch.cuda.synchronize()
+    deep_launches = fused_octave.launches, fused_octave.clamped_launches
+    dogs, masks = build_pyramid_fused(images, deep_cfg, octave_fn=fused_octave_reference)
+    deep_plain = concat_keypoints(detect_octaves(dogs, deep_cfg, masks)[0])
+    torch.cuda.synchronize()
+    del dogs, masks
+    agreement = _slot_agreement(deep_keypoints, deep_plain)
+    both = deep_keypoints.valid & deep_plain.valid
+    delta = torch.hypot(deep_keypoints.abs_x[both] - deep_plain.abs_x[both],
+                        deep_keypoints.abs_y[both] - deep_plain.abs_y[both])
+    p99 = torch.quantile(delta.double(), 0.99).item()
+    from_deep = int((deep_keypoints.valid & (deep_keypoints.octave == deep)).sum())
+    _say(
+        f"clamped mode: detect_batched {BATCH}x{HEIGHT}x{WIDTH} at {deep_cfg.num_octaves} "
+        f"octaves x {deep_cfg.scales_per_octave} scales: kernel launches {deep_launches[0]}, "
+        f"of them clamped {deep_launches[1]}; valid {int(deep_keypoints.valid.sum())} vs plain "
+        f"{int(deep_plain.valid.sum())} ({from_deep} from octave {deep}), slot agreement "
+        f"{agreement:.6f}, p99 position delta {p99:.3g} px"
+    )
+    _require(deep_launches == (deep_cfg.num_octaves, 1),
+             "the 5-octave path did not launch the clamped octave kernel once")
+    _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
+             "the 5-octave path disagrees with its plain version")
+    _require(bool(torch.isfinite(deep_keypoints.abs_x[deep_keypoints.valid]).all()),
+             "the 5-octave path's keypoints are not finite")
+    del deep_keypoints, deep_plain
+
+    base, deep_spo = images, deep_cfg.scales_per_octave
+    for octave in range(deep):
+        _, seed, _ = fused_octave(base, _octave_sigmas(deep_cfg, octave), deep_spo, thr,
+                                  upsample2x=octave == 0)
+        base = downsample2x_nn(seed).contiguous()
+    sigmas = _octave_sigmas(deep_cfg, deep)
+    radii = [0 if sg is None else kernel_radius(sg) for sg in sigmas]
+    plane = tuple(base.shape[1:])
+    _require(octave_tile_plan(*plane, tuple(radii)).clamped
+             and blur_tile_plan(*plane, max(radii)).clamped,
+             f"octave {deep} {plane} at radius {max(radii)} is not planned clamped")
+    fused_octave.clamped_launches = blur_fused.clamped_launches = 0
+    got = fused_octave(base, sigmas, deep_spo, thr, emit_scales=True)
+    want = fused_octave_reference(base, sigmas, deep_spo, thr, emit_scales=True)
+    blurred = blur_fused(base, sigmas[-1])
+    torch.cuda.synchronize()
+    _require((fused_octave.clamped_launches, blur_fused.clamped_launches) == (1, 1),
+             "the clamped kernels were not launched")
+    clamped_err = max((got[i] - want[i]).abs().max().item() for i in (0, 1, 3))
+    clamped_same = (got[2] == want[2]).float().mean().item()
+    clamped_blur_err = (blurred - blur_separable(base, sigmas[-1])).abs().max().item()
+    _require(max(clamped_err, clamped_blur_err) <= MAX_ABS_ERR,
+             "a clamped kernel differs from its plain version")
+    _require(clamped_same >= MASK_AGREEMENT, "the clamped octave kernel's masks disagree")
+    max_err, blur_err = max(max_err, clamped_err), max(blur_err, clamped_blur_err)
+    del got, want, blurred
+    k_ms, p_ms, _ = _in_turns(
+        torch,
+        lambda: fused_octave(base, sigmas, deep_spo, thr),
+        lambda: fused_octave_reference(base, sigmas, deep_spo, thr),
+        10, 3,
+    )
+    bk_ms, bp_ms, _ = _in_turns(
+        torch, lambda: blur_fused(base, sigmas[-1]), lambda: blur_separable(base, sigmas[-1]), 10, 3
+    )
+    n_scales = len(sigmas)
+    octave_bound = _bound(base.numel() * (4 + 4 * (n_scales - 1) + 4 + 2),
+                          sum(_blur_flop(base.numel(), r) for r in radii)
+                          + base.numel() * (n_scales - 1))
+    blur_bound_deep = _bound(8 * base.numel(), _blur_flop(base.numel(), max(radii)))
+    _say(
+        f"clamped mode, octave {deep} {tuple(base.shape)} radii {radii}: octave kernel vs "
+        f"plain max abs diff {clamped_err:.3g}, masks equal on {100 * clamped_same:.4f} % of "
+        f"pixels, {k_ms:.3f} ms against plain {p_ms:.3f} ms (bound {octave_bound[0]:.4f} ms by "
+        f"{octave_bound[1]}); blur kernel at radius {max(radii)} max abs diff "
+        f"{clamped_blur_err:.3g}, {bk_ms:.3f} ms against plain {bp_ms:.3f} ms (bound "
+        f"{blur_bound_deep[0]:.4f} ms by {blur_bound_deep[1]}) [{smi}]"
     )
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)

@@ -10,8 +10,15 @@ are tensor code over the whole batch, and the describe stages sample
 through the window-sampling kernel (``ops/kernels/describe.py``). The
 entry points are fused-only. :func:`build_scale_space` is the scale space
 built blur by blur, with the stand-alone blur kernel
-(``ops/kernels/blur.py``) as one of its strategies. Tensors stay on the
-device of the input; a CPU input runs the kernels' plain versions.
+(``ops/kernels/blur.py``) as one of its strategies.
+
+The entry points (:func:`detect`, :func:`detect_batched`,
+:func:`detect_and_describe`, :func:`detect_and_describe_batched`,
+:func:`build_pyramid_fused`, :func:`build_scale_space`) run on the card:
+with ``device=None`` a CUDA input stays on its card, a CPU tensor is moved
+to ``torch.device("cuda")``, and without a CUDA device they raise.
+``device="cpu"`` asks for the kernels' plain versions on the CPU. Results
+lie on the device the work ran on.
 """
 
 from __future__ import annotations
@@ -44,6 +51,24 @@ BLUR_STRATEGIES = {
 }
 
 
+Device = torch.device | str | None
+
+
+def _on_device(images: torch.Tensor, device: Device) -> torch.Tensor:
+    """``images`` on the device an entry point works on (see the module):
+    ``device`` if given, else the images' own card, else the default card."""
+    if device is None:
+        if images.device.type == "cuda":
+            return images
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the entry points run on the card; pass "
+                'device="cpu" for the plain PyTorch versions on the CPU'
+            )
+        device = torch.device("cuda")
+    return images.to(device)
+
+
 def _as_unit_float(images: torch.Tensor) -> torch.Tensor:
     """uint8 → ``/255`` (the reference's rule, reference/src/image-utils.js:114),
     uint16 → ``/65535``, as float32; float inputs pass through untouched.
@@ -64,6 +89,7 @@ def build_pyramid_fused(
     cfg: SiftConfig,
     octave_fn=fused_octave,
     emit_scales: bool = False,
+    device: Device = None,
 ):
     """Per-octave DoG stacks and packed extrema masks of ``(B, H, W)`` images.
 
@@ -75,9 +101,9 @@ def build_pyramid_fused(
     ``(B, H_o, W_o)``; with ``emit_scales`` a third list follows, the
     Gaussian stacks ``(B, S, H_o, W_o)`` that the describe stages sample.
     ``octave_fn`` is :func:`fused_octave` or a function with its contract,
-    such as its plain version.
+    such as its plain version. ``device``: see the module.
     """
-    base = images.to(torch.float32).contiguous()
+    base = _on_device(images, device).to(torch.float32).contiguous()
     dogs, masks, stacks = [], [], []
     for octave in range(cfg.num_octaves):
         sigmas = [
@@ -102,7 +128,7 @@ def build_pyramid_fused(
 
 
 def build_scale_space(
-    images: torch.Tensor, cfg: SiftConfig, blur: str = "cuda"
+    images: torch.Tensor, cfg: SiftConfig, blur: str = "cuda", device: Device = None
 ) -> list[torch.Tensor]:
     """Gaussian scale space, one blur at a time (reference/background.js:71-237).
 
@@ -111,11 +137,11 @@ def build_scale_space(
     scale from the 2×-upsampled image with the semigroup offset sigma;
     octaves ≥ 1 seed from the previous octave's scale ``spo`` decimated 2×,
     taken unblurred as scale 0 (background.js:110-143). ``blur`` names one
-    of :data:`BLUR_STRATEGIES`.
+    of :data:`BLUR_STRATEGIES`. ``device``: see the module.
     """
     blur_fn = BLUR_STRATEGIES[blur]
     octaves: list[torch.Tensor] = []
-    base = upsample2x_nn(images).contiguous()
+    base = upsample2x_nn(_on_device(images, device)).contiguous()
     for octave in range(cfg.num_octaves):
         first = 0
         scales = []
@@ -165,25 +191,30 @@ def detect_from_dog(
 
 
 def detect_batched(
-    images: torch.Tensor, cfg: SiftConfig
+    images: torch.Tensor, cfg: SiftConfig, device: Device = None
 ) -> tuple[Keypoints, list[Extrema]]:
     """Batched detection: ``(B, H, W)`` grayscale → keypoints ``(B, N)``.
 
     uint8/uint16 images are scaled to ``[0, 1]``; float images are taken as
-    they are. The work runs on the images' device.
+    they are. ``device``: see the module.
     """
-    dogs, masks = build_pyramid_fused(_as_unit_float(images), cfg)
+    images = _on_device(images, device)
+    dogs, masks = build_pyramid_fused(
+        _as_unit_float(images), cfg, device=images.device
+    )
     return detect_from_dog(dogs, cfg, masks)
 
 
-def detect(image: torch.Tensor, cfg: SiftConfig) -> tuple[Keypoints, list[Extrema]]:
+def detect(
+    image: torch.Tensor, cfg: SiftConfig, device: Device = None
+) -> tuple[Keypoints, list[Extrema]]:
     """Single-image detection: ``(H, W)`` grayscale → keypoints ``(N,)``."""
-    keypoints, extrema = detect_batched(image[None], cfg)
+    keypoints, extrema = detect_batched(image[None], cfg, device=device)
     return _first(keypoints), [_first(e) for e in extrema]
 
 
 def detect_and_describe_batched(
-    images: torch.Tensor, cfg: SiftConfig
+    images: torch.Tensor, cfg: SiftConfig, device: Device = None
 ) -> DescribedKeypoints:
     """Batched frontend: ``(B, H, W)`` grayscale → oriented keypoints with
     128-D descriptors, fields ``(B, N)``.
@@ -192,9 +223,11 @@ def detect_and_describe_batched(
     then one compacting describe pass over the whole batch
     (``ops/descriptor.py::describe_compact``), or with
     ``cfg.compact_describe`` off the per-octave path over every slot.
+    ``device``: see the module.
     """
+    images = _on_device(images, device)
     dogs, masks, stacks = build_pyramid_fused(
-        _as_unit_float(images), cfg, emit_scales=True
+        _as_unit_float(images), cfg, emit_scales=True, device=images.device
     )
     keypoints, _ = detect_octaves(dogs, cfg, masks)
     if cfg.compact_describe:
@@ -207,10 +240,12 @@ def detect_and_describe_batched(
     )
 
 
-def detect_and_describe(image: torch.Tensor, cfg: SiftConfig) -> DescribedKeypoints:
+def detect_and_describe(
+    image: torch.Tensor, cfg: SiftConfig, device: Device = None
+) -> DescribedKeypoints:
     """Single-image frontend: ``(H, W)`` grayscale → described keypoints
     ``(N,)``, as a batch of one."""
-    return _first(detect_and_describe_batched(image[None], cfg))
+    return _first(detect_and_describe_batched(image[None], cfg, device=device))
 
 
 def _first(result):

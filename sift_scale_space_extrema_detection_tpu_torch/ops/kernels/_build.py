@@ -42,14 +42,16 @@ _IP = ctypes.POINTER(ctypes.c_int)  # host int array
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _SIGNATURES = {  # name: (argtypes, restype)
     # base, batch, h, w, upsample2x, taps, tap_offsets, radii, n_scales,
-    # spo, contrast_thr, stack, tmp, dog, seed, masks, mask16, stream
+    # spo, contrast_thr, tile_h, tile_w, clamped, shared_bytes, stack (or
+    # null), dog, seed, masks, mask16, stream
     "sift_fused_octave": (
         [_P, _I, _I, _I, _I, _P, _IP, _IP, _I, _I, ctypes.c_float,
-         _P, _P, _P, _P, _P, _I, _P],
+         _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
         _I,
     ),
-    # src, batch, h, w, taps, radius, tmp, dst, stream
-    "sift_blur": ([_P, _I, _I, _I, _P, _I, _P, _P, _P], _I),
+    # src, batch, h, w, taps, radius, tile_h, tile_w, clamped, shared_bytes,
+    # dst, stream
+    "sift_blur": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P], _I),
     # stacks, heights, widths, n_octaves, batch, n_scales, slots, ys, xs,
     # gy, gx, n_slots, n_samples, stream
     "sift_window_sample_pair": (

@@ -5,7 +5,12 @@
 ``ops/pallas/octave.py::fused_octave``. :func:`fused_octave_reference` is
 its plain PyTorch version with the same contract; the wrapper runs it
 only for a tensor on the CPU. On a CUDA tensor the wrapper launches the
-kernel or raises — it never falls back.
+kernel or raises — it never falls back. The kernel is one launch per
+octave: a block owns a tile of the plane and keeps the Gaussian scales in
+shared memory; :func:`octave_tile_plan` picks the tile from the plane's
+shape and the octave's radii alone (and, for a radius whose window fits no
+tile, the passes' clamped mode, counted in ``fused_octave.clamped_launches``
+as well).
 
 Contract for one octave of a batch (the layout is plane-major; the TPU
 kernel's stripe-major DoG is a TPU write-DMA workaround, not part of it):
@@ -37,8 +42,21 @@ from ..extrema import mask_dtype, pack_extrema_codes
 from ..gaussian import blur_separable, device_taps
 from ..resize import upsample2x_nn
 from ._build import check_launch, load_kernels
+from .tiles import TilePlan, plan_tiles
 
 _MAX_GRID_Z = 65535  # CUDA's limit on the grid's z extent (the batch)
+# A thread of the kernel keeps the scan state of 4 pixels in registers.
+MAX_TILE_PIXELS = 2048
+
+
+def octave_tile_plan(h: int, w: int, radii: tuple[int, ...]) -> TilePlan:
+    """The fused octave kernel's tile for an ``h × w`` octave plane blurred
+    with ``radii`` (0 for an unblurred scale): a ring of one pixel for the
+    scan's 3×3 neighbourhood and the ``L`` and ``D`` planes beside the
+    window. Raises ``ValueError`` where no tile fits either mode."""
+    return plan_tiles(
+        h, w, tuple(radii), ring=1, planes=2, max_tile_pixels=MAX_TILE_PIXELS
+    )
 
 
 def _check_base(base: torch.Tensor) -> None:
@@ -84,7 +102,8 @@ def fused_octave(
     """All scales, DoG, seed and extrema masks of one octave (see module).
 
     CUDA tensors go through the hand-written kernel, counted in
-    ``fused_octave.launches``; CPU tensors through
+    ``fused_octave.launches`` (and, where the plan is the clamped mode, in
+    ``fused_octave.clamped_launches`` too); CPU tensors through
     :func:`fused_octave_reference`. Any other device raises.
     """
     _check_base(base)
@@ -110,9 +129,9 @@ def fused_octave(
         raise ValueError(f"fused_octave: {n_trios} trios do not fit 32 mask bits")
     dev = base.device
     taps_dev, offsets, radii = device_taps(tuple(sigmas), dev)
+    plan = octave_tile_plan(h, w, tuple(radii))
     f32 = dict(dtype=torch.float32, device=dev)
-    stack = torch.empty((b, n_scales, h, w), **f32)
-    tmp = torch.empty((b, h, w), **f32)
+    stack = torch.empty((b, n_scales, h, w), **f32) if emit_scales else None
     dog = torch.empty((b, n_scales - 1, h, w), **f32)
     seed = torch.empty((b, h, w), **f32)
     mdtype = mask_dtype(n_trios)
@@ -124,15 +143,18 @@ def fused_octave(
             base.data_ptr(), b, h, w, int(upsample2x),
             taps_dev.data_ptr(), int_array(*offsets), int_array(*radii),
             n_scales, spo, float(np.float32(contrast_thr)),
-            stack.data_ptr(), tmp.data_ptr(), dog.data_ptr(),
+            plan.tile_h, plan.tile_w, int(plan.clamped), plan.shared_bytes,
+            stack.data_ptr() if emit_scales else None, dog.data_ptr(),
             seed.data_ptr(), masks.data_ptr(), int(mdtype == torch.int16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "fused_octave")
     fused_octave.launches += 1
+    fused_octave.clamped_launches += plan.clamped
     if emit_scales:
         return dog, seed, masks, stack
     return dog, seed, masks
 
 
 fused_octave.launches = 0
+fused_octave.clamped_launches = 0

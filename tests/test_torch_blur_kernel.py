@@ -72,7 +72,7 @@ def scale_spaces():
 def test_build_scale_space_matches_jax(scale_spaces, blur):
     images, cfg, want = scale_spaces
     got = port.build_scale_space(
-        torch.from_numpy(images), port.from_reference_config(cfg), blur
+        torch.from_numpy(images), port.from_reference_config(cfg), blur, device="cpu"
     )
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -84,15 +84,19 @@ def test_fused_pyramid_stacks_equal_the_scale_space(scale_spaces):
     images, cfg, want = scale_spaces
     pcfg = port.from_reference_config(cfg)
     dogs, masks, stacks = port.build_pyramid_fused(
-        torch.from_numpy(images), pcfg, emit_scales=True
+        torch.from_numpy(images), pcfg, emit_scales=True, device="cpu"
     )
-    blur_by_blur = port.build_scale_space(torch.from_numpy(images), pcfg, "cuda")
+    blur_by_blur = port.build_scale_space(
+        torch.from_numpy(images), pcfg, "cuda", device="cpu"
+    )
     for s, d, b, w in zip(stacks, dogs, blur_by_blur, want):
         assert torch.equal(s, b)  # the same tap loop, the same seeds
         np.testing.assert_allclose(s.numpy(), w, rtol=0, atol=XLA_ATOL)
         assert torch.equal(d, port.build_dog([s])[0])
     # Asking for the stacks changes nothing else.
-    plain_dogs, plain_masks = port.build_pyramid_fused(torch.from_numpy(images), pcfg)
+    plain_dogs, plain_masks = port.build_pyramid_fused(
+        torch.from_numpy(images), pcfg, device="cpu"
+    )
     assert all(torch.equal(a, b) for a, b in zip(dogs, plain_dogs))
     assert all(torch.equal(a, b) for a, b in zip(masks, plain_masks))
 

@@ -42,7 +42,7 @@ GRID = 16
 def stacks():
     cfg = port.SiftConfig(num_octaves=3)
     images = torch.from_numpy(textured_images(5, 2, 96, 128))
-    return cfg, port.build_scale_space(images, cfg)
+    return cfg, port.build_scale_space(images, cfg, device="cpu")
 
 
 def _slots_and_coords(cfg, stacks, separable):

@@ -72,7 +72,7 @@ def run(request):
         jax.vmap(lambda *a: jfront.detect_from_dog(list(a[:n]), cfg, list(a[n:])))
     )(*dogs, *masks)
     got_kp, got_ex = port.detect_batched(
-        torch.from_numpy(images), port.from_reference_config(cfg)
+        torch.from_numpy(images), port.from_reference_config(cfg), device="cpu"
     )
     return images, cfg, (want_kp, want_ex), (got_kp, got_ex)
 
@@ -121,7 +121,9 @@ def test_detect_batched_counters_match_jax(run):
 
 def test_detect_single_image_equals_batch_row(run):
     images, cfg, _, (got, got_ex) = run
-    one, one_ex = port.detect(torch.from_numpy(images[1]), port.from_reference_config(cfg))
+    one, one_ex = port.detect(
+        torch.from_numpy(images[1]), port.from_reference_config(cfg), device="cpu"
+    )
     for field in ("valid", "reject_reason", "abs_x", "abs_y", "abs_sigma", "value"):
         assert torch.equal(getattr(one, field), getattr(got, field)[1]), field
     for e1, eb in zip(one_ex, got_ex):
@@ -171,7 +173,7 @@ def described():
 
     want = jax.jit(jax.vmap(one))(*stacks, *dogs, *masks)
     pcfg = port.from_reference_config(cfg)
-    got = port.detect_and_describe_batched(torch.from_numpy(images), pcfg)
+    got = port.detect_and_describe_batched(torch.from_numpy(images), pcfg, device="cpu")
     return images, pcfg, want, got
 
 
@@ -206,7 +208,7 @@ def test_detect_and_describe_batched_matches_jax(described):
 
 def test_detect_and_describe_single_image_equals_batch_row(described):
     images, pcfg, _, got = described
-    one = port.detect_and_describe(torch.from_numpy(images[1]), pcfg)
+    one = port.detect_and_describe(torch.from_numpy(images[1]), pcfg, device="cpu")
     assert one.valid.shape == (pcfg.descriptor_pair_capacity(),)
     for field in ("valid", "octave", "abs_x", "abs_y", "theta", "descriptor"):
         assert torch.equal(getattr(one, field), getattr(got, field)[1]), field
@@ -215,7 +217,8 @@ def test_detect_and_describe_single_image_equals_batch_row(described):
 def test_per_octave_describe_path_holds_the_same_keypoints(described):
     images, pcfg, _, got = described
     per_octave = port.detect_and_describe_batched(
-        torch.from_numpy(images), dataclasses.replace(pcfg, compact_describe=False)
+        torch.from_numpy(images), dataclasses.replace(pcfg, compact_describe=False),
+        device="cpu",
     )
     total = sum(pcfg.refine_capacity(o) for o in range(pcfg.num_octaves))
     assert per_octave.valid.shape == (2, total * pcfg.max_orientations_per_keypoint)

@@ -32,11 +32,15 @@ def test_port_runs_without_importing_jax():
         import sift_scale_space_extrema_detection_tpu_torch as port
         rng = np.random.default_rng(0)
         image = torch.from_numpy((rng.random((24, 32)) * 255).astype(np.uint8))
-        kp, ex = port.detect(image, port.SiftConfig(num_octaves=2))
+        kp, ex = port.detect(image, port.SiftConfig(num_octaves=2), device="cpu")
         assert kp.valid.shape == (kp.capacity,)
-        described = port.detect_and_describe(image, port.SiftConfig(num_octaves=2))
+        described = port.detect_and_describe(
+            image, port.SiftConfig(num_octaves=2), device="cpu"
+        )
         assert described.descriptor.shape == (described.capacity, 128)
-        port.build_scale_space(image.float(), port.SiftConfig(num_octaves=2), "cuda")
+        port.build_scale_space(
+            image.float(), port.SiftConfig(num_octaves=2), "cuda", device="cpu"
+        )
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not leaked, leaked
         assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
@@ -85,7 +89,7 @@ def test_fused_octave_checks_its_input(base, error):
 def test_octave_smaller_than_two_pixels_raises():
     # 8x8 input: octave 0 is 16x16, octave 4 is 1x1.
     with pytest.raises(ValueError, match="fewer octaves"):
-        port.detect(torch.rand(8, 8), port.SiftConfig(num_octaves=5))
+        port.detect(torch.rand(8, 8), port.SiftConfig(num_octaves=5), device="cpu")
 
 
 def test_blur_fused_has_no_fallback_for_other_devices():
@@ -152,4 +156,45 @@ def test_window_sample_pair_checks_its_input(args, error):
 
 def test_unknown_blur_strategy_raises():
     with pytest.raises(KeyError):
-        port.build_scale_space(torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "matmul")
+        port.build_scale_space(
+            torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "matmul", device="cpu"
+        )
+
+
+_CFG = port.SiftConfig(num_octaves=2)
+ENTRY_POINTS = {
+    "detect": lambda **kw: port.detect(torch.rand(16, 20), _CFG, **kw),
+    "detect_batched": lambda **kw: port.detect_batched(torch.rand(1, 16, 20), _CFG, **kw),
+    "detect_and_describe": lambda **kw: port.detect_and_describe(
+        torch.rand(16, 20), _CFG, **kw
+    ),
+    "detect_and_describe_batched": lambda **kw: port.detect_and_describe_batched(
+        torch.rand(1, 16, 20), _CFG, **kw
+    ),
+    "build_pyramid_fused": lambda **kw: port.build_pyramid_fused(
+        torch.rand(1, 16, 20), _CFG, **kw
+    ),
+    "build_scale_space": lambda **kw: port.build_scale_space(
+        torch.rand(1, 16, 20), _CFG, **kw
+    ),
+}
+
+
+def _tensors(result):
+    """Every tensor of an entry point's result (dataclasses, lists, tuples)."""
+    if isinstance(result, torch.Tensor):
+        return [result]
+    if isinstance(result, (list, tuple)):
+        return [t for item in result for t in _tensors(item)]
+    return [t for value in vars(result).values() for t in _tensors(value)]
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_runs_on_the_card_unless_asked_for_the_cpu(name, monkeypatch):
+    # Without a CUDA device the default raises and names the way out; it
+    # never carries on on the CPU by itself.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name]()
+    tensors = _tensors(ENTRY_POINTS[name](device="cpu"))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
