@@ -57,6 +57,37 @@ Phases (any failure exits non-zero and prints no result):
     clamped, counted as clamped, equal to the plain version (max abs diff
     <= 1e-6, masks >= 99.99 %) and timed against it.
 
+12. the oracle leg — ``build_scale_space(blur="exact")`` → ``build_dog`` →
+    ``detect_from_dog`` in float64 on one 96×128 frame, on the card, against
+    the same calls with ``device="cpu"``: scale space and DoG bit for bit,
+    the same keypoint slots and reject codes, float fields within 1e-10.
+13. two views at full width — two 480×640 frames of one blob field (150
+    blobs, rendered from a seed by ``utils/synthetic.py``) →
+    ``detect_and_describe_batched`` at the main configuration (all three
+    counts zeroed before and read after: the octave kernel launches exactly
+    once per octave, the sampling kernel twice, the blur kernel never; both
+    kernels equal their plain versions on these frames and this path's slots
+    within 1e-6, masks on >= 99.99 % of pixels, and the described result
+    equals the plain path's) → ``match_descriptors`` on all 1,800 ×
+    1,800 pair slots → ``backproject`` → ``estimate_essential_ransac`` (512
+    hypotheses, 2 px) → ``triangulate_midpoint`` → ``pnp_dlt`` +
+    ``solve_pnp``: results on the card, rotation error < 1°, translation
+    cosine > 0.995, every inlier depth positive, PnP within the same bars;
+    the same descriptors and generator seed through ``device="cpu"`` give
+    the same match indices on >= 99 % of valid slots and a rotation within
+    0.1° of the card's. Matching, RANSAC, its batched SVD and PnP are timed
+    (host clock around synchronised runs, after a warm-up).
+14. bundle adjustment and the pose graph at a real size — the problem recipe
+    of ``benchmarks/ba_bench.py``: (a) dense, sorted assembly, 50 cameras ×
+    4,096 landmarks × 25,600 observations, 10 LM iterations; (b) matrix-free
+    CG, 1,000 cameras × 100,000 landmarks × 300,000 observations, 10
+    iterations × 32 CG steps. The cost falls, the final RMS reprojection
+    error is below 1 px (the noise is 0.5 px), (a) with ``assembly="scatter"``
+    ends within 1e-3 relative of the sorted cost, and a second run of each
+    gives bit-equal poses and points. ``optimize_pose_graph`` on a 200-node
+    drifted loop lowers its cost by >= 100×. LM iterations/s, ms per
+    iteration and peak device memory are printed.
+
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
 once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s.
@@ -100,6 +131,26 @@ SAMPLE_FLOP = 40  # per gradient sample: 8 differences, 8 halvings, 2 blends of 
 # this script), and ``detect_batched``'s peak device memory then.
 PREV_MS = {"fused_octave": 17.59, "window_sample_pair": 0.71, "blur_fused": 14.77}
 PREV_DETECT_PEAK_GIB = 7.76
+
+
+ORACLE_ATOL = 1e-10
+TWO_VIEW_FOCAL = 520.0
+TWO_VIEW_T = (-0.8, 0.05, 0.1)
+TWO_VIEW_ROTVEC = (0.02, -0.08, 0.01)
+TWO_VIEW_BLOBS = 150
+TWO_VIEW_SATELLITES = 5
+TWO_VIEW_SEED = 2
+TWO_VIEW_BLOB_SIGMA = 24.0  # at unit depth: the test's 12 scaled with the focal length
+RANSAC_HYPOTHESES = 512
+RANSAC_PX = 2.0
+MAX_ROTATION_DEG = 1.0
+MIN_TRANSLATION_COS = 0.995
+MATCH_AGREEMENT = 0.99
+CPU_ROTATION_DEG = 0.1
+BA_MAX_RMS_PX = 1.0
+BA_SCATTER_RTOL = 1e-3
+POSE_GRAPH_NODES = 200
+POSE_GRAPH_GAIN = 100.0
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -200,6 +251,454 @@ def _slot_agreement(got, want):
         (got.valid == want.valid)
         & (~got.valid | ((got.octave == want.octave) & (got.scale_level == want.scale_level)))
     ).float().mean().item()
+
+
+def _rodrigues(w) -> np.ndarray:
+    """Rotation matrix of the axis-angle ``w`` (numpy, float64)."""
+    w = np.asarray(w, dtype=np.float64)
+    theta = float(np.linalg.norm(w))
+    k = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if theta < 1e-12:
+        return np.eye(3) + k
+    return np.eye(3) + np.sin(theta) / theta * k + (1.0 - np.cos(theta)) / theta**2 * (k @ k)
+
+
+def _rotation_angle_deg(r_est, r_true) -> float:
+    rr = np.asarray(r_est, dtype=np.float64) @ np.asarray(r_true, dtype=np.float64).T
+    return float(np.degrees(np.arccos(np.clip((np.trace(rr) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def _two_view_scene(synthetic, blobs=TWO_VIEW_BLOBS, satellites=TWO_VIEW_SATELLITES,
+                    seed=TWO_VIEW_SEED):
+    """Two 480×640 views of one blob field with real parallax: the geometry
+    of the two-view test of the JAX package scaled to 640×480 (focal 520,
+    blob radius doubled), with 150 blobs of five satellites for its 90 of
+    three. The blobs' textures are alike, so the ratio test leaves 20 to 40
+    matches of some 400 descriptors a frame whatever the field, about two
+    thirds of them inliers, and not every field gives a pose inside the
+    bars: of seeds 0-5, four do at 150 blobs × 5 satellites and two at 300 ×
+    3. The default field passes with room to spare. The other arguments are
+    for ``tests/test_torch_two_view.py``, which runs fields that fail
+    through both packages and reads the same matches from both.
+    Returns ``(frames (2, H, W) float32, k_mat, r2, t_dir)``."""
+    rng = np.random.default_rng(seed)
+    k_mat = np.array([[TWO_VIEW_FOCAL, 0, WIDTH / 2], [0, TWO_VIEW_FOCAL, HEIGHT / 2], [0, 0, 1.0]])
+    pts = rng.uniform([-2.2, -1.6, 4.0], [2.2, 1.6, 9.0], size=(blobs, 3))
+    r2, t_dir = _rodrigues(TWO_VIEW_ROTVEC), np.array(TWO_VIEW_T)
+    rpts, amps, sscales = synthetic.textured_blob_field(
+        rng, pts, satellites_per_point=satellites
+    )
+    frames = [
+        synthetic.render_blob_image(
+            rpts, r, t, k_mat, (WIDTH, HEIGHT), blob_sigma_at_unit_depth=TWO_VIEW_BLOB_SIGMA,
+            amplitudes=amps, sigma_scales=sscales, rng=rng,
+        )
+        for r, t in ((np.eye(3), np.zeros(3)), (r2, t_dir))
+    ]
+    return np.stack(frames).astype(np.float32), k_mat, r2, t_dir
+
+
+def _ba_problem(rng, c: int, l: int, opc: int):
+    """The bundle-adjustment benchmark's problem (``benchmarks/ba_bench.py``),
+    as numpy float32 arrays: a ring of ``c`` cameras orbiting a cloud of
+    ``l`` points, ``opc`` observations per camera of points in front of it,
+    0.5 px of pixel noise, the points started 0.05 off the truth."""
+    dtype = np.float32
+    pts = rng.uniform([-4, -4, -4], [4, 4, 4], size=(l, 3)).astype(dtype)
+    k_mat = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], dtype)
+    radius = 12.0
+    rots, ts, cams, lms, uvs = [], [], [], [], []
+    for ci in range(c):
+        ang = 2.0 * np.pi * ci / max(c, 1)
+        r = _rodrigues([0.0, ang, 0.0]).astype(dtype)
+        center = radius * np.array([np.sin(ang), 0.1 * np.sin(3 * ang), -np.cos(ang)])
+        t = (-r @ center).astype(dtype)
+        depths = pts @ r.T[:, 2] + t[2]
+        front = np.where(depths > 2.0)[0]
+        sel = rng.choice(front, opc, replace=len(front) < opc)
+        xc = pts[sel] @ r.T + t
+        uv = xc[:, :2] / xc[:, 2:3] * 500.0 + [320, 240]
+        uv += 0.5 * rng.normal(size=uv.shape)
+        rots.append(r)
+        ts.append(t)
+        cams.append(np.full(opc, ci))
+        lms.append(sel)
+        uvs.append(uv)
+    return dict(
+        rotations=np.stack(rots),
+        translations=np.stack(ts),
+        points=pts + 0.05 * rng.normal(size=pts.shape).astype(dtype),
+        k_mat=k_mat,
+        camera=np.concatenate(cams).astype(np.int32),
+        landmark=np.concatenate(lms).astype(np.int32),
+        uv=np.concatenate(uvs).astype(dtype),
+    )
+
+
+def _circle_graph(rng, n: int, drift: float = 0.03):
+    """An odometry chain around a circle plus the loop-closure edge
+    ``n-1 → 0`` with true relative transforms, and initial poses drifted by
+    accumulated noise (numpy float64): ``(est_r, est_t, src, dst, rel_r,
+    rel_t)``."""
+    rots, ts = [], []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        r = _rodrigues([0.0, ang, 0.0])
+        rots.append(r)
+        ts.append(-r @ np.array([np.cos(ang) * 5, 0.0, np.sin(ang) * 5]))
+    src = np.array(list(range(n - 1)) + [n - 1])
+    dst = np.array(list(range(1, n)) + [0])
+    rel_r = [rots[d] @ rots[s].T for s, d in zip(src, dst)]
+    rel_t = [rots[d] @ (-rots[s].T @ ts[s]) + ts[d] for s, d in zip(src, dst)]
+    est_r, est_t = [rots[0]], [ts[0]]
+    for i in range(1, n):
+        est_r.append(_rodrigues(drift * rng.normal(size=3)) @ rots[i])
+        est_t.append(ts[i] + drift * 5 * rng.normal(size=3))
+    return np.stack(est_r), np.stack(est_t), src, dst, np.stack(rel_r), np.stack(rel_t)
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock time of ``fn()`` over ``reps`` calls, synchronised
+    before and after, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _phase_oracle_leg(torch, port) -> None:
+    """Phase 12: the float64 ``blur="exact"`` leg on the card against the
+    same calls on the CPU."""
+    cfg = port.SiftConfig()
+    frame = torch.from_numpy(_make_batch(1, 96, 128).astype(np.float64))
+    t0 = time.perf_counter()
+    space = port.build_scale_space(frame, cfg, blur="exact")
+    dogs = port.build_dog(space)
+    keypoints, _ = port.detect_from_dog(dogs, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want_space = port.build_scale_space(frame, cfg, blur="exact", device="cpu")
+    want_dogs = port.build_dog(want_space)
+    want, _ = port.detect_from_dog(want_dogs, cfg)
+    _require(all(s.dtype == torch.float64 and s.device.type == "cpu" for s in want_space),
+             "the CPU leg left float64 or the CPU")
+    _require(all(s.is_cuda for s in space) and keypoints.valid.is_cuda,
+             "the oracle leg of a CPU tensor did not run on the card")
+    space_equal = all(torch.equal(a.cpu(), b) for a, b in zip(space, want_space))
+    dog_equal = all(torch.equal(a.cpu(), b) for a, b in zip(dogs, want_dogs))
+    valid = want.valid
+    same_slots = all(
+        torch.equal(getattr(keypoints, f).cpu(), getattr(want, f))
+        for f in ("valid", "reject_reason", "octave", "scale_level", "local_y", "local_x")
+    )
+    float_err = max(
+        (getattr(keypoints, f).cpu() - getattr(want, f))[valid].abs().max().item()
+        for f in ("abs_x", "abs_y", "abs_sigma", "value")
+    )
+    _say(
+        f"oracle leg: float64 blur='exact' on a 96x128 frame, {cfg.num_octaves} octaves x "
+        f"{cfg.scales_per_octave} scales, card against CPU: scale space bit-equal "
+        f"{space_equal}, DoG bit-equal {dog_equal}, keypoint slots and reject codes equal "
+        f"{same_slots} ({int(valid.sum())} valid of {valid.numel()} slots, reject counts "
+        f"{want.reject_counts().sum(0).tolist()}), float fields max abs diff {float_err:.3g}; "
+        f"{seconds:.2f} s on the card"
+    )
+    _require(len(space) == cfg.num_octaves and space[0].dtype == torch.float64,
+             "the oracle leg's scale space is not float64")
+    _require(space_equal, "oracle leg: the scale space differs between card and CPU")
+    _require(dog_equal, "oracle leg: the DoG differs between card and CPU")
+    _require(int(valid.sum()) > 0, "oracle leg: no valid keypoint")
+    _require(same_slots, "oracle leg: keypoint slots or reject codes differ")
+    _require(float_err <= ORACLE_ATOL, f"oracle leg: float fields differ by {float_err}")
+
+
+def _phase_two_view(torch, port, smi) -> tuple[float, float]:
+    """Phase 13: two frames → relative pose → structure → PnP, on the card,
+    against the same descriptors through ``device="cpu"``. The octave and
+    sampling kernels are held against their plain versions on these frames
+    and their slots; returns their largest differences ``(octave, sampling)``."""
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
+        build_pyramid_fused,
+        detect_octaves,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import describe_compact
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+        window_sample_pair,
+        window_sample_pair_reference,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
+        fused_octave,
+        fused_octave_reference,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.ransac import _eight_point_nullvec
+    from sift_scale_space_extrema_detection_tpu_torch.sfm import geometry as geo
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.pnp import pnp_dlt, solve_pnp
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    frames, k_np, r2, t_dir = _two_view_scene(synthetic)
+    t_unit = t_dir / np.linalg.norm(t_dir)
+    frames = torch.from_numpy(frames)
+    k_cpu = torch.from_numpy(k_np).float()
+    thresh = RANSAC_PX / TWO_VIEW_FOCAL
+
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    described = port.detect_and_describe_batched(frames, cfg)
+    torch.cuda.synchronize()
+    launches = fused_octave.launches, window_sample_pair.launches, blur_fused.launches
+    n_pairs = cfg.descriptor_pair_capacity()
+    _require(launches == (cfg.num_octaves, 2, 0),
+             f"the two-view path launched the octave, sampling and blur kernels {launches} times")
+    _require(tuple(described.descriptor.shape) == (2, n_pairs, 128),
+             f"two-view descriptor shape {tuple(described.descriptor.shape)}")
+
+    # Both kernels against their plain versions at this path's shapes: the
+    # two frames' pyramids, then the slots the path samples, then the whole.
+    frames_dev = frames.cuda()
+    dogs, masks, stacks = build_pyramid_fused(frames_dev, cfg, emit_scales=True)
+    plain_dogs, plain_masks, plain_stacks = build_pyramid_fused(
+        frames_dev, cfg, octave_fn=fused_octave_reference, emit_scales=True
+    )
+    octave_err = max(
+        (a - b).abs().max().item() for a, b in zip(dogs + stacks, plain_dogs + plain_stacks)
+    )
+    masks_same = min((a == b).float().mean().item() for a, b in zip(masks, plain_masks))
+    keypoints_list, _ = detect_octaves(dogs, cfg, masks)
+    stages = []
+
+    def recording(stacks, table, ys, xs):
+        stages.append((table, ys, xs))
+        return window_sample_pair(stacks, table, ys, xs)
+
+    describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
+    _require(len(stages) == 2, f"two views: {len(stages)} describe stages sampled")
+    sample_err = 0.0
+    for table, ys, xs in stages:
+        got = window_sample_pair(stacks, table, ys, xs)
+        want = window_sample_pair_reference(stacks, table, ys, xs)
+        sample_err = max(sample_err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+    plain_keypoints, _ = detect_octaves(plain_dogs, cfg, plain_masks)
+    plain_described = describe_compact(
+        plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
+    )
+    torch.cuda.synchronize()
+    slots_same = _slot_agreement(described, plain_described)
+    both = described.valid & plain_described.valid
+    described_err = (described.descriptor - plain_described.descriptor)[both].abs().max().item()
+    _say(
+        f"two views, kernels vs plain on these frames: DoG and Gaussian stacks max abs diff "
+        f"{octave_err:.3g}, masks equal on {100 * masks_same:.4f} % of pixels, window samples "
+        f"of both stages {[tuple(st[1].shape) for st in stages]} max abs diff {sample_err:.3g}; "
+        f"the whole path through the plain versions: slot agreement {slots_same:.6f}, "
+        f"descriptors max abs diff {described_err:.3g}"
+    )
+    _require(octave_err <= MAX_ABS_ERR, "two views: the octave kernel differs from its plain version")
+    _require(masks_same >= MASK_AGREEMENT, "two views: the octave kernel's masks disagree")
+    _require(sample_err <= MAX_ABS_ERR, "two views: the sampling kernel differs from its plain version")
+    _require(slots_same >= SLOT_AGREEMENT, "two views: slots differ from the plain path's")
+    _require(described_err <= MAX_ABS_ERR, "two views: descriptors differ from the plain path's")
+    del dogs, masks, stacks, plain_dogs, plain_masks, plain_stacks, plain_described, stages
+
+    def two_view(desc, valid, abs_x, abs_y, k_mat, where):
+        """Matching → rays → RANSAC from one frame pair's described slots."""
+        matches = port.match_descriptors(desc[0], valid[0], desc[1], valid[1], device=where)
+        index = matches.index.long()
+        uv1 = torch.stack([abs_x[0], abs_y[0]], dim=-1).to(matches.index.device)
+        uv2 = torch.stack([abs_x[1], abs_y[1]], dim=-1).to(matches.index.device)[index]
+        k_mat = k_mat.to(matches.index.device)
+        rays1, rays2 = geo.backproject(uv1, k_mat), geo.backproject(uv2, k_mat)
+        result = port.estimate_essential_ransac(
+            rays1, rays2, matches.valid, torch.Generator().manual_seed(0),
+            num_hypotheses=RANSAC_HYPOTHESES, inlier_threshold=thresh, device=where,
+        )
+        return matches, uv2, rays1, rays2, result
+
+    fields = (described.descriptor, described.valid, described.abs_x, described.abs_y)
+    matches, uv2, rays1, rays2, result = two_view(*fields, k_cpu, None)
+    torch.cuda.synchronize()
+    _require(all(t.is_cuda for t in (described.descriptor, matches.index, result.rotation,
+                                     result.inliers)),
+             "the two-view path of CPU tensors did not run on the card")
+    inl = result.inliers
+    rot_err = _rotation_angle_deg(result.rotation.cpu().numpy(), r2)
+    cos_t = abs(float(result.translation.double().cpu().numpy() @ t_unit))
+    eye = torch.eye(3, device=rays1.device)
+    tri, depths = geo.triangulate_midpoint(
+        eye, eye.new_zeros(3), result.rotation, result.translation, rays1[inl], rays2[inl]
+    )
+    _say(
+        f"two views: 2x{HEIGHT}x{WIDTH} frames of {TWO_VIEW_BLOBS} blobs, kernel launches "
+        f"octave {launches[0]} sampling {launches[1]} blur {launches[2]}; valid descriptors "
+        f"{described.valid.sum(dim=1).tolist()} of {n_pairs} pair slots, matches "
+        f"{int(matches.valid.sum())}, RANSAC ({RANSAC_HYPOTHESES} hypotheses, {RANSAC_PX} px) "
+        f"inliers {int(result.num_inliers)}; rotation error {rot_err:.4f} deg, translation "
+        f"cosine {cos_t:.6f}, least inlier depth {depths.min().item():.3f}"
+    )
+    _require(int(matches.valid.sum()) >= 15 and int(result.num_inliers) >= 12,
+             "two views: too few matches or inliers")
+    _require(rot_err < MAX_ROTATION_DEG, "two views: rotation error above the bar")
+    _require(cos_t > MIN_TRANSLATION_COS, "two views: translation direction off")
+    _require(bool((depths > 0).all()) and bool(torch.isfinite(tri).all()),
+             "two views: an inlier triangulates behind a camera")
+
+    # PnP on the triangulated inliers recovers the second camera, in the
+    # reconstruction's own scale (its translation has unit norm).
+    ok = torch.ones(tri.shape[0], dtype=torch.bool, device=tri.device)
+    k_dev = k_cpu.to(tri.device)
+    r0, t0 = pnp_dlt(tri, uv2[inl], ok, k_dev)
+    rot, t, rms = solve_pnp(tri, uv2[inl], ok, k_dev, r0, t0)
+    pnp_err = _rotation_angle_deg(rot.cpu().numpy(), r2)
+    pnp_cos = float((t / t.norm()).double().cpu().numpy() @ t_unit)
+    _say(
+        f"two views, PnP from pnp_dlt on {tri.shape[0]} triangulated inliers: rotation error "
+        f"{pnp_err:.4f} deg, translation cosine {pnp_cos:.6f}, rms {rms.item():.3f} px"
+    )
+    _require(pnp_err < MAX_ROTATION_DEG and pnp_cos > MIN_TRANSLATION_COS,
+             "two views: PnP does not recover the second camera")
+
+    # The same descriptors and the same generator seed on the CPU.
+    cpu_matches, _, _, _, cpu_result = two_view(*(f.cpu() for f in fields), k_cpu, "cpu")
+    either = matches.valid.cpu() | cpu_matches.valid
+    same = (matches.valid.cpu() == cpu_matches.valid) & (
+        ~cpu_matches.valid | (matches.index.cpu() == cpu_matches.index)
+    )
+    agreement = same[either].float().mean().item()
+    cpu_rot = _rotation_angle_deg(result.rotation.cpu().numpy(), cpu_result.rotation.numpy())
+    _say(
+        f"two views, card against device='cpu' on the same descriptors and seed: match "
+        f"agreement {agreement:.6f} over {int(either.sum())} valid slots, inliers "
+        f"{int(result.num_inliers)} vs {int(cpu_result.num_inliers)}, rotations {cpu_rot:.5f} "
+        f"deg apart"
+    )
+    _require(agreement >= MATCH_AGREEMENT, "two views: the card's matches differ from the CPU's")
+    _require(cpu_rot <= CPU_ROTATION_DEG, "two views: the card's rotation differs from the CPU's")
+
+    desc, valid = described.descriptor, described.valid
+    generator = torch.Generator().manual_seed(0)
+    rows = torch.randn(RANSAC_HYPOTHESES, 8, 9, device=rays1.device)
+    match_ms = _host_ms(
+        torch, lambda: port.match_descriptors(desc[0], valid[0], desc[1], valid[1]), 10
+    )
+    ransac_ms = _host_ms(
+        torch,
+        lambda: port.estimate_essential_ransac(
+            rays1, rays2, matches.valid, generator, num_hypotheses=RANSAC_HYPOTHESES,
+            inlier_threshold=thresh,
+        ),
+        5,
+    )
+    svd_ms = _host_ms(torch, lambda: _eight_point_nullvec(rows), 5)
+    dlt_ms = _host_ms(torch, lambda: pnp_dlt(tri, uv2[inl], ok, k_dev), 5)
+    pnp_ms = _host_ms(torch, lambda: solve_pnp(tri, uv2[inl], ok, k_dev, r0, t0), 5)
+    _say(
+        f"timing two views: match_descriptors {n_pairs}x{n_pairs} {match_ms:.3f} ms, "
+        f"estimate_essential_ransac {ransac_ms:.2f} ms (its batched SVD of "
+        f"{tuple(rows.shape)} alone {svd_ms:.2f} ms), pnp_dlt {dlt_ms:.2f} ms, solve_pnp "
+        f"{pnp_ms:.2f} ms per call on {tri.shape[0]} points [{smi}]"
+    )
+    return octave_err, sample_err
+
+
+def _phase_solvers(torch, port, smi) -> None:
+    """Phase 14: bundle adjustment (dense and CG) and the pose graph."""
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
+        BAState,
+        Observations,
+        bundle_adjust,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.pose_graph import (
+        PoseGraphEdges,
+        optimize_pose_graph,
+        pose_graph_residuals,
+    )
+
+    sizes = {"dense": (50, 4096, 512), "cg": (1000, 100_000, 300)}
+    iterations = 10
+    for solver, (c, l, opc) in sizes.items():
+        p = {k: torch.from_numpy(v) for k, v in _ba_problem(np.random.default_rng(0), c, l, opc).items()}
+        state = BAState(p["rotations"], p["translations"], p["points"], p["k_mat"])
+        obs = Observations(p["camera"], p["landmark"], p["uv"],
+                           torch.ones(c * opc, dtype=torch.bool))
+        n_obs = c * opc
+        # All state lives on the card.
+        state, obs = (type(v)(**{k: t.cuda() for k, t in vars(v).items()}) for v in (state, obs))
+
+        def run(num_iterations=iterations, **kw):
+            return bundle_adjust(state, obs, num_iterations=num_iterations, solver=solver,
+                                 cg_iterations=32, **kw)
+
+        def rms(cost):
+            return float(torch.sqrt(2.0 * cost / n_obs))
+
+        _, cost0 = run(num_iterations=0)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, cost = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        again, cost_again = run()
+        same_bits = all(
+            torch.equal(getattr(out, f), getattr(again, f))
+            for f in ("rotations", "translations", "points")
+        ) and torch.equal(cost, cost_again)
+        name = "dense, sorted assembly" if solver == "dense" else "CG, 32 steps"
+        _say(
+            f"bundle adjustment ({name}): {c} cameras x {l} landmarks x {n_obs} observations, "
+            f"{iterations} LM iterations: cost {cost0.item():.1f} -> {cost.item():.1f}, rms "
+            f"{rms(cost0):.3f} -> {rms(cost):.3f} px, second run bit-equal {same_bits}; "
+            f"{iterations / seconds:.2f} LM iterations/s, {1e3 * seconds / iterations:.2f} ms per "
+            f"iteration, peak device memory {peak_gib:.3f} GiB [{smi}]"
+        )
+        _require(out.points.is_cuda and cost.is_cuda, "bundle_adjust left the card")
+        _require(bool(torch.isfinite(out.points).all() & torch.isfinite(out.translations).all()),
+                 f"bundle adjustment ({solver}): the state is not finite")
+        _require(cost.item() < cost0.item(), f"bundle adjustment ({solver}): the cost did not fall")
+        _require(rms(cost) < BA_MAX_RMS_PX, f"bundle adjustment ({solver}): rms above the bar")
+        _require(same_bits, f"bundle adjustment ({solver}): two runs differ")
+        if solver == "dense":
+            _, scatter_cost = run(assembly="scatter")
+            rel = abs(scatter_cost.item() - cost.item()) / cost.item()
+            scatter_ms = _host_ms(torch, lambda: run(assembly="scatter"), 1)
+            _say(
+                f"bundle adjustment (dense, scatter assembly): final cost "
+                f"{scatter_cost.item():.1f}, {rel:.3g} relative of the sorted cost; "
+                f"{scatter_ms / iterations:.2f} ms per iteration [{smi}]"
+            )
+            _require(rel <= BA_SCATTER_RTOL, "the scatter assembly ends at another cost")
+        del state, obs, out, again
+
+    n = POSE_GRAPH_NODES
+    est_r, est_t, src, dst, rel_r, rel_t = _circle_graph(np.random.default_rng(5), n)
+    edges = PoseGraphEdges(
+        src=torch.from_numpy(src).int(), dst=torch.from_numpy(dst).int(),
+        rel_rotation=torch.from_numpy(rel_r).float(), rel_translation=torch.from_numpy(rel_t).float(),
+        weight=torch.ones(len(src)),
+    )
+    rots, ts = torch.from_numpy(est_r).float(), torch.from_numpy(est_t).float()
+    r0 = pose_graph_residuals(rots, ts, edges)
+    cost0 = 0.5 * float((r0 * r0).sum())
+    graph_iterations = 20
+    opt_r, opt_t, cost = optimize_pose_graph(rots, ts, edges, graph_iterations)
+    torch.cuda.synchronize()
+    graph_ms = _host_ms(
+        torch, lambda: optimize_pose_graph(rots, ts, edges, graph_iterations), 1
+    )
+    _say(
+        f"pose graph: {n}-node drifted loop, {len(src)} edges, {graph_iterations} LM iterations: "
+        f"cost {cost0:.4g} -> {cost.item():.4g} ({cost0 / max(cost.item(), 1e-30):.3g}x lower); "
+        f"{graph_ms:.1f} ms per solve, {graph_ms / graph_iterations:.2f} ms per iteration [{smi}]"
+    )
+    _require(opt_r.is_cuda and opt_t.is_cuda, "optimize_pose_graph left the card")
+    _require(bool(torch.isfinite(opt_r).all() & torch.isfinite(opt_t).all()),
+             "pose graph: the poses are not finite")
+    _require(cost.item() * POSE_GRAPH_GAIN <= cost0, "pose graph: the cost fell by less than 100x")
 
 
 def main() -> int:
@@ -805,6 +1304,17 @@ def main() -> int:
         f"{clamped_blur_err:.3g}, {bk_ms:.3f} ms against plain {bp_ms:.3f} ms (bound "
         f"{blur_bound_deep[0]:.4f} ms by {blur_bound_deep[1]}) [{smi}]"
     )
+
+    del images, images_cpu, base
+    torch.cuda.empty_cache()
+
+    # --- 12-14. the oracle leg, two views, the solvers ---------------------------
+    import sift_scale_space_extrema_detection_tpu_torch as port
+
+    _phase_oracle_leg(torch, port)
+    two_view_err = _phase_two_view(torch, port, smi)
+    max_err, sample_err = max(max_err, two_view_err[0]), max(sample_err, two_view_err[1])
+    _phase_solvers(torch, port, smi)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)

@@ -1,12 +1,15 @@
-"""PyTorch/CUDA port of the SIFT scale-space extrema detection frontend.
+"""PyTorch/CUDA port of the SIFT scale-space extrema detection framework.
 
 The detect and describe paths of ``sift_scale_space_extrema_detection_tpu``
 (Gaussian scale space, DoG, 26-neighbour extrema, quadratic refinement,
 orientation assignment, 128-D descriptors) in PyTorch, with the fused
 octave kernel, the window-sampling kernel of the describe stages and the
-stand-alone blur hand-written in CUDA for Hopper (sm_90a). The package
-imports torch and numpy only; the JAX package stays the reference it is
-tested against.
+stand-alone blur hand-written in CUDA for Hopper (sm_90a); the float64
+``blur="exact"`` leg that is bit-faithful to the reference oracle
+(``utils/oracle.py``); and the geometry back end: descriptor matching,
+RANSAC two-view pose, and the ``sfm`` subpackage (PnP, pose graph, Schur
+bundle adjustment, trajectory evaluation). The package imports torch and
+numpy only; the JAX package stays the reference it is tested against.
 """
 
 from .config import SiftConfig, from_reference_config
@@ -34,7 +37,16 @@ from .models.frontend import (
     detect_batched,
     detect_from_dog,
 )
+from . import sfm
 from .ops.descriptor import DescribedKeypoints, concat_described
+from .ops.matching import Matches, descriptor_distances, match_descriptors
+from .ops.ransac import (
+    EssentialResult,
+    estimate_essential_ransac,
+    recover_pose,
+    refine_relative_pose,
+    sampson_error,
+)
 
 __all__ = [
     "SiftConfig",
@@ -44,6 +56,15 @@ __all__ = [
     "concat_keypoints",
     "DescribedKeypoints",
     "concat_described",
+    "Matches",
+    "EssentialResult",
+    "descriptor_distances",
+    "match_descriptors",
+    "estimate_essential_ransac",
+    "recover_pose",
+    "refine_relative_pose",
+    "sampson_error",
+    "sfm",
     "BLUR_STRATEGIES",
     "build_dog",
     "build_pyramid_fused",

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # Rejection taxonomy mirroring the reference's console.log categories
@@ -32,6 +33,13 @@ REJECT_REASON_NAMES = (
     "singular_hessian",
 )
 NUM_REJECT_REASONS = len(REJECT_REASON_NAMES)
+
+
+def exact_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: an exact value of
+    that type, which no later conversion can round another way. float64
+    values pass through."""
+    return float(np.float32(value)) if dtype == torch.float32 else float(value)
 
 
 @dataclasses.dataclass

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SiftConfig
+from ..core.device import Device, on_device
 from ..core.types import Extrema, Keypoints, concat_keypoints
 from ..ops.descriptor import (
     DescribedKeypoints,
@@ -34,8 +35,8 @@ from ..ops.descriptor import (
     describe_octave,
 )
 from ..ops.dog import difference_of_gaussians
-from ..ops.extrema import select_refine_candidates
-from ..ops.gaussian import blur_separable
+from ..ops.extrema import compact_extrema, find_extrema, select_refine_candidates
+from ..ops.gaussian import blur_exact, blur_separable
 from ..ops.kernels.blur import blur_fused
 from ..ops.kernels.octave import fused_octave
 from ..ops.refine import refine_keypoints
@@ -44,29 +45,13 @@ from ..ops.resize import downsample2x_nn, upsample2x_nn
 # ``"cuda"``, the default, is the stand-alone blur kernel, the counterpart of
 # the JAX package's ``"pallas"`` strategy (for a CPU tensor it runs the tap
 # loop); ``"separable"`` is the plain tap loop on any device, the kernel's
-# reference.
+# reference; ``"exact"`` is the full 2-D blur in the reference's
+# accumulation order, for float64 images: the oracle leg.
 BLUR_STRATEGIES = {
     "cuda": blur_fused,
     "separable": blur_separable,
+    "exact": blur_exact,
 }
-
-
-Device = torch.device | str | None
-
-
-def _on_device(images: torch.Tensor, device: Device) -> torch.Tensor:
-    """``images`` on the device an entry point works on (see the module):
-    ``device`` if given, else the images' own card, else the default card."""
-    if device is None:
-        if images.device.type == "cuda":
-            return images
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the entry points run on the card; pass "
-                'device="cpu" for the plain PyTorch versions on the CPU'
-            )
-        device = torch.device("cuda")
-    return images.to(device)
 
 
 def _as_unit_float(images: torch.Tensor) -> torch.Tensor:
@@ -103,7 +88,7 @@ def build_pyramid_fused(
     ``octave_fn`` is :func:`fused_octave` or a function with its contract,
     such as its plain version. ``device``: see the module.
     """
-    base = _on_device(images, device).to(torch.float32).contiguous()
+    base = on_device(images, device).to(torch.float32).contiguous()
     dogs, masks, stacks = [], [], []
     for octave in range(cfg.num_octaves):
         sigmas = [
@@ -132,7 +117,8 @@ def build_scale_space(
 ) -> list[torch.Tensor]:
     """Gaussian scale space, one blur at a time (reference/background.js:71-237).
 
-    ``images``: ``(..., H, W)`` float32 grayscale in [0, 1]. Returns one
+    ``images``: ``(..., H, W)`` grayscale in [0, 1], float32 (float64 for
+    ``blur="exact"``); the stacks keep the dtype. Returns one
     stack per octave, ``(..., spo+3, H_o, W_o)``. Octave 0 blurs every
     scale from the 2×-upsampled image with the semigroup offset sigma;
     octaves ≥ 1 seed from the previous octave's scale ``spo`` decimated 2×,
@@ -141,7 +127,7 @@ def build_scale_space(
     """
     blur_fn = BLUR_STRATEGIES[blur]
     octaves: list[torch.Tensor] = []
-    base = upsample2x_nn(_on_device(images, device)).contiguous()
+    base = upsample2x_nn(on_device(images, device)).contiguous()
     for octave in range(cfg.num_octaves):
         first = 0
         scales = []
@@ -162,27 +148,40 @@ def build_dog(scale_space: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def detect_octaves(
-    dogs: list[torch.Tensor], cfg: SiftConfig, masks: list[torch.Tensor]
+    dogs: list[torch.Tensor],
+    cfg: SiftConfig,
+    masks: list[torch.Tensor | None] | None = None,
 ) -> tuple[list[Keypoints], list[Extrema]]:
     """Candidate selection and refinement, octave by octave.
 
-    ``dogs[o]``: ``(B, D, H_o, W_o)``; ``masks[o]``: ``(B, H_o, W_o)``.
-    Returns one ``Keypoints`` ``(B, n_o)`` and one ``Extrema`` per octave —
-    the refinement candidates with the uncapped per-trio counters.
+    ``dogs[o]``: ``(B, D, H_o, W_o)``; ``masks[o]``: ``(B, H_o, W_o)``, the
+    octave kernel's packed extrema codes, or ``None``: that octave is
+    scanned here (:func:`find_extrema`), in the dtype of its DoG, which is
+    the route of the float64 oracle leg. Returns one ``Keypoints``
+    ``(B, n_o)`` and one ``Extrema`` per octave: with a mask the refinement
+    candidates with the uncapped per-trio counters, without one the
+    per-trio segments (segment ``t`` = slots ``[t·cap, (t+1)·cap)``), of
+    which refinement consumes a compacted copy.
     """
-    extrema = [
-        select_refine_candidates(m, d, cfg, cfg.refine_capacity(octave))
-        for octave, (d, m) in enumerate(zip(dogs, masks))
-    ]
-    keypoints = [
-        refine_keypoints(d, e, octave, cfg)
-        for octave, (d, e) in enumerate(zip(dogs, extrema))
-    ]
+    if masks is None:
+        masks = [None] * len(dogs)
+    keypoints, extrema = [], []
+    for octave, (d, m) in enumerate(zip(dogs, masks)):
+        capacity = cfg.refine_capacity(octave)
+        if m is None:
+            e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
+            selected = compact_extrema(e, capacity)
+        else:
+            e = selected = select_refine_candidates(m, d, cfg, capacity)
+        extrema.append(e)
+        keypoints.append(refine_keypoints(d, selected, octave, cfg))
     return keypoints, extrema
 
 
 def detect_from_dog(
-    dogs: list[torch.Tensor], cfg: SiftConfig, masks: list[torch.Tensor]
+    dogs: list[torch.Tensor],
+    cfg: SiftConfig,
+    masks: list[torch.Tensor | None] | None = None,
 ) -> tuple[Keypoints, list[Extrema]]:
     """:func:`detect_octaves` with all octaves' slots concatenated:
     keypoints ``(B, N)`` and one ``Extrema`` per octave."""
@@ -198,7 +197,7 @@ def detect_batched(
     uint8/uint16 images are scaled to ``[0, 1]``; float images are taken as
     they are. ``device``: see the module.
     """
-    images = _on_device(images, device)
+    images = on_device(images, device)
     dogs, masks = build_pyramid_fused(
         _as_unit_float(images), cfg, device=images.device
     )
@@ -225,7 +224,7 @@ def detect_and_describe_batched(
     ``cfg.compact_describe`` off the per-octave path over every slot.
     ``device``: see the module.
     """
-    images = _on_device(images, device)
+    images = on_device(images, device)
     dogs, masks, stacks = build_pyramid_fused(
         _as_unit_float(images), cfg, emit_scales=True, device=images.device
     )

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import SiftConfig
+from ..core.device import require_full_float32_matmul
 from ..core.types import Keypoints
 from .extrema import first_k_set_indices
 from .kernels.describe import window_sample_pair
@@ -77,14 +78,6 @@ def concat_described(parts: list[DescribedKeypoints]) -> DescribedKeypoints:
             for f in dataclasses.fields(DescribedKeypoints)
         }
     )
-
-
-def _require_full_float32_matmul(device: torch.device) -> None:
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the describe stages' histograms are float32 matrix products: "
-            "set torch.backends.cuda.matmul.allow_tf32 = False"
-        )
 
 
 def _ruler(half_width: float, n: int) -> np.ndarray:
@@ -388,7 +381,7 @@ def assign_orientations(
     ``valid`` is ANDed with the keypoint slot validity. ``sample_fn`` as in
     :func:`describe_compact`.
     """
-    _require_full_float32_matmul(octave_stack.device)
+    require_full_float32_matmul(octave_stack.device)
     slots = _octave_slots(octave_stack, keypoints, octave, keypoints.valid)
     theta, valid = _orientation_stage(slots, cfg, sample_fn)
     shape = (*keypoints.valid.shape, cfg.max_orientations_per_keypoint)
@@ -410,7 +403,7 @@ def compute_descriptors(
     :func:`assign_orientations`. Output capacity ``N * max_orientations``;
     an invalid pair is not sampled and its descriptor is zero.
     """
-    _require_full_float32_matmul(octave_stack.device)
+    require_full_float32_matmul(octave_stack.device)
     n_ori = cfg.max_orientations_per_keypoint
     b = keypoints.valid.shape[0]
     flat_theta = theta.reshape(b, -1)
@@ -476,7 +469,7 @@ def describe_compact(
     ``sample_fn`` is :func:`window_sample_pair` or a function with its
     contract, such as its plain version.
     """
-    _require_full_float32_matmul(stacks[0].device)
+    require_full_float32_matmul(stacks[0].device)
     n_ori = cfg.max_orientations_per_keypoint
 
     def cat(field):

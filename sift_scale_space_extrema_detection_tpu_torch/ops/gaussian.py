@@ -1,9 +1,14 @@
-"""Gaussian kernel construction and the separable blur.
+"""Gaussian kernel construction, the separable blur and the exact blur.
 
-``js_round``, ``kernel_radius`` and ``gaussian_kernel_1d`` are verbatim
-numpy copies of the JAX package's functions (``ops/gaussian.py``): the
-taps must be the same float64 numbers before they are rounded to
-float32, and the JAX package cannot be imported without jax.
+``js_round``, ``kernel_radius``, ``gaussian_kernel_1d`` and
+``gaussian_kernel_2d`` are verbatim numpy copies of the JAX package's
+functions (``ops/gaussian.py``): the taps must be the same float64 numbers
+before they are rounded to float32, and the JAX package cannot be imported
+without jax.
+
+:func:`blur_exact` is the bit-parity path: the full 2-D kernel in the
+reference's accumulation order (reference/src/sift.js:96-131), for float64
+images, on the CPU or on the card.
 
 :func:`blur_separable` is an explicit edge-clamp and tap loop, never a
 convolution: cuDNN runs float32 convolutions in TF32 by default, and a
@@ -32,6 +37,31 @@ def js_round(x: float) -> int:
 def kernel_radius(sigma: float, radius_sigmas: float = 3.0) -> int:
     """Kernel half-width ``round(3σ)`` (reference/src/sift.js:38)."""
     return js_round(radius_sigmas * sigma)
+
+
+@functools.lru_cache(maxsize=None)
+def gaussian_kernel_2d(sigma: float, radius_sigmas: float = 3.0) -> np.ndarray:
+    """Dense 2-D Gaussian kernel, float64, exact reference construction.
+
+    Replays reference/src/sift.js:31-67: sample
+    ``exp(((i²+j²)/σ²)·-0.5) / (2π·σ²)`` on the grid, accumulate the sum in
+    row-major order, then divide elementwise. The sequential accumulation
+    order matters for bit-parity of the normalizer.
+    """
+    radius = kernel_radius(sigma, radius_sigmas)
+    size = 2 * radius + 1
+    kernel = np.empty((size, size), dtype=np.float64)
+    total = 0.0
+    for i in range(size):
+        ii = i - radius
+        for j in range(size):
+            jj = j - radius
+            value = math.exp(
+                (((ii * ii) + (jj * jj)) / (sigma * sigma)) * -0.5
+            ) / (2.0 * math.pi * (sigma * sigma))
+            kernel[i, j] = value
+            total += value
+    return kernel / total
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,6 +111,33 @@ def blur_separable(image: torch.Tensor, sigma: float) -> torch.Tensor:
     for t in range(1, len(taps)):
         out = out + padded[..., t : t + h, :] * taps[t]
     return out
+
+
+def blur_exact(image: torch.Tensor, sigma: float, radius_sigmas: float = 3.0) -> torch.Tensor:
+    """Full 2-D Gaussian blur of ``(..., H, W)`` in the reference's
+    accumulation order, clamp-to-edge.
+
+    Per output pixel the reference does
+    ``pixel_sum += input[clamp(y + (j-R))][clamp(x + (i-R))] * k[i][j]``
+    with ``i`` (x offset) outer and ``j`` (y offset) inner
+    (reference/src/sift.js:96-131). Each tap is one multiply and one add,
+    two tensor operations and so two roundings; a fused multiply-add
+    (``torch.addcmul``) would round once and break bit parity. The first
+    tap starts the sum: ``0 + p`` is ``p`` exactly. The taps are Python
+    floats, exact float64 values, so a float64 image sees the reference's
+    kernel; ``(2R+1)²`` taps make this the slow path by design.
+    """
+    radius = kernel_radius(sigma, radius_sigmas)
+    kernel = gaussian_kernel_2d(sigma, radius_sigmas).tolist()
+    h, w = image.shape[-2], image.shape[-1]
+    padded = image.index_select(-1, _clamped(w, radius, image.device))
+    padded = padded.index_select(-2, _clamped(h, radius, image.device))
+    acc = None
+    for i, column in enumerate(kernel):  # x offset
+        for j, k in enumerate(column):  # y offset
+            product = padded[..., j : j + h, i : i + w] * k
+            acc = product if acc is None else acc + product
+    return acc
 
 
 @functools.lru_cache(maxsize=256)

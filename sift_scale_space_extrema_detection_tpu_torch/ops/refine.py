@@ -21,8 +21,9 @@ applies the reference's accept/reject ladder:
 ω uses the *original* extremum value even after the point moves — a
 reference quirk (background.js:565 reads ``extrema.value``) kept for parity.
 
-Every operation is a separate float32 op, so each product and sum is
-rounded on its own, as in the JAX package.
+Every operation is a separate tensor op in the dtype of the DoG (float32
+on the fused path, float64 on the oracle leg), so each product and sum is
+rounded on its own, as in the JAX package and in the reference.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from __future__ import annotations
 import functools
 import math
 
-import numpy as np
 import torch
 
 from ..config import SiftConfig
@@ -43,6 +43,7 @@ from ..core.types import (
     REJECT_SINGULAR_HESSIAN,
     Extrema,
     Keypoints,
+    exact_scalar,
 )
 
 JS_EPSILON = 2.0**-52  # Number.EPSILON
@@ -66,11 +67,6 @@ def _cube_offsets(device: torch.device):
     return tuple(
         torch.tensor([p[i] for p in _POINTS], device=device) for i in range(3)
     )
-
-
-def _f32(v: float) -> float:
-    """``v`` rounded to float32, as a Python float (an exact float32 value)."""
-    return float(np.float32(v))
 
 
 def _octave_geometry(octave: int, cfg: SiftConfig):
@@ -99,7 +95,7 @@ def _step(dog_flat, base, d_scales, h, w, st, cfg):
     clipped into the interior so every gather index stays legal.
     """
     s, m, n = st["s"], st["m"], st["n"]
-    dtype = torch.float32
+    dtype = dog_flat.dtype
     sc = s.clamp(1, d_scales - 2).long()
     mc = m.clamp(1, h - 2).long()
     nc = n.clamp(1, w - 2).long()
@@ -136,7 +132,7 @@ def _step(dog_flat, base, d_scales, h, w, st, cfg):
     m22 = (h11 * h22) - (h12 * h12)
     det = (h11 * m00) - (h12 * m01) + (h13 * m02)
 
-    singular = det.abs() < _f32(JS_EPSILON)
+    singular = det.abs() < exact_scalar(JS_EPSILON, dtype)
     det_safe = torch.where(singular, torch.ones_like(det), det)
 
     i00 = m00 / det_safe
@@ -152,15 +148,15 @@ def _step(dog_flat, base, d_scales, h, w, st, cfg):
     a1 = ((-i10) * g0) + ((-i11) * g1) + ((-i12) * g2)
     a2 = ((-i20) * g0) + ((-i21) * g1) + ((-i22) * g2)
 
-    lim = _f32(cfg.convergence_threshold)
+    lim = exact_scalar(cfg.convergence_threshold, dtype)
     converged = (a0.abs() < lim) & (a1.abs() < lim) & (a2.abs() < lim)
 
     omega = st["value"] + (((0.5 * a0) * g0) + ((0.5 * a1) * g1) + ((0.5 * a2) * g2))
-    contrast_fail = omega.abs() < _f32(cfg.contrast_threshold_scaled)
+    contrast_fail = omega.abs() < exact_scalar(cfg.contrast_threshold_scaled, dtype)
 
     tr = h22 + h33
     det2 = (h22 * h33) - (h23 * h23)
-    edge_fail = ((tr * tr) / det2) > _f32(cfg.edge_threshold)
+    edge_fail = ((tr * tr) / det2) > exact_scalar(cfg.edge_threshold, dtype)
 
     sf = s.to(dtype)
     mf = m.to(dtype)
@@ -196,7 +192,7 @@ def _step(dog_flat, base, d_scales, h, w, st, cfg):
     record = finish_converged & ~contrast_fail & ~edge_fail
     # A tensor divisor: CUDA divides by a Python scalar through its
     # reciprocal, which rounds differently (1/spo is inexact).
-    spo = torch.full((), float(cfg.scales_per_octave), device=s.device)
+    spo = torch.full((), float(cfg.scales_per_octave), dtype=dtype, device=s.device)
     out = dict(st)
     out.update(
         abs_y=torch.where(record, st["delta"] * (a1 + mf), st["abs_y"]),
@@ -219,7 +215,7 @@ def refine_keypoints(
 ) -> Keypoints:
     """Refine every candidate slot of one octave for a batch of images.
 
-    ``dog``: ``(B, D, H, W)`` float32; ``extrema`` fields ``(B, N)``. The
+    ``dog``: ``(B, D, H, W)`` float32 or float64; ``extrema`` fields ``(B, N)``. The
     batch is one flat pass over ``B × N`` slots, each addressing its own
     image through an offset into the flat DoG. Newton iteration 1 runs on
     every slot; before each later iteration only the first
@@ -233,12 +229,12 @@ def refine_keypoints(
     delta, sigma_coeff = _octave_geometry(octave, cfg)
     image = torch.arange(b, device=dev).repeat_interleave(n_slots)
     valid = extrema.valid.reshape(-1)
-    zero = torch.zeros(b * n_slots, dtype=torch.float32, device=dev)
+    zero = torch.zeros(b * n_slots, dtype=dog.dtype, device=dev)
     st = dict(
         s=extrema.scale_level.reshape(-1).to(torch.int32),
         m=extrema.y.reshape(-1).to(torch.int32),
         n=extrema.x.reshape(-1).to(torch.int32),
-        value=extrema.value.reshape(-1).to(torch.float32),
+        value=extrema.value.reshape(-1).to(dog.dtype),
         done=~valid,
         run=valid,
         reason=torch.where(valid, REJECT_MAX_ITERATIONS, -1).to(torch.int32),
@@ -246,8 +242,8 @@ def refine_keypoints(
         abs_x=zero,
         abs_sigma=zero,
         omega=zero,
-        delta=torch.full_like(zero, _f32(delta)),
-        sigc=torch.full_like(zero, _f32(sigma_coeff)),
+        delta=torch.full_like(zero, exact_scalar(delta, dog.dtype)),
+        sigc=torch.full_like(zero, exact_scalar(sigma_coeff, dog.dtype)),
     )
     dog_flat = dog.reshape(-1)
     base = image * (d_scales * h * w)

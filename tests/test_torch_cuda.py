@@ -291,3 +291,143 @@ def test_per_octave_describe_on_card_matches_cpu(device):
     assert same.float().mean() >= 0.99
     cosine = (got.descriptor.cpu()[v][same] * want.descriptor[v][same]).sum(-1)
     assert cosine.min() >= 0.9999
+
+
+# --- the oracle leg and the solvers on the card ------------------------------------
+
+
+def test_oracle_leg_on_card_is_bit_equal_to_cpu(device):
+    frame = torch.from_numpy(_blob_images(5, 1, 24, 32)).double()
+    cfg = port.SiftConfig(num_octaves=3)
+    got = port.build_scale_space(frame, cfg, blur="exact")
+    want = port.build_scale_space(frame, cfg, blur="exact", device="cpu")
+    assert all(g.is_cuda and g.dtype == torch.float64 for g in got)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    got_kp, _ = port.detect_from_dog(port.build_dog(got), cfg)
+    want_kp, _ = port.detect_from_dog(port.build_dog(want), cfg)
+    assert want_kp.valid.any()
+    assert torch.equal(got_kp.valid.cpu(), want_kp.valid)
+    assert torch.equal(got_kp.reject_reason.cpu(), want_kp.reject_reason)
+    err = (got_kp.abs_x.cpu() - want_kp.abs_x)[want_kp.valid].abs().max()
+    assert err <= 1e-10
+
+
+def _small_sfm_problem(seed=0, cams=4, pts=60, baseline=0.25):
+    """A ring of cameras looking at a point cloud: float32 CPU tensors of
+    the solvers' inputs, every camera seeing every point, 0.3 px of noise."""
+    rng = np.random.default_rng(seed)
+    geo = port.sfm.geometry
+    k = torch.tensor([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+    points = torch.from_numpy(rng.uniform([-2, -2, 4], [2, 2, 7], size=(pts, 3))).float()
+    rots = geo.so3_exp(torch.tensor([[0.0, 0.04 * i, 0.0] for i in range(cams)]))
+    ts = torch.tensor([[-baseline * i, 0.0, 0.02 * i] for i in range(cams)])
+    uv = geo.project(geo.transform(rots, ts, points), k)  # (C, P, 2)
+    uv = uv + 0.3 * torch.from_numpy(rng.normal(size=tuple(uv.shape))).float()
+    state = port.sfm.ba.BAState(
+        rots, ts, points + 0.02 * torch.from_numpy(rng.normal(size=(pts, 3))).float(), k
+    )
+    obs = port.sfm.ba.Observations(
+        torch.arange(cams, dtype=torch.int32).repeat_interleave(pts),
+        torch.arange(pts, dtype=torch.int32).repeat(cams),
+        uv.reshape(-1, 2),
+        torch.ones(cams * pts, dtype=torch.bool),
+    )
+    return dict(k=k, points=points, rots=rots, ts=ts, uv=uv, state=state, obs=obs)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_bundle_adjust_on_card_from_cpu_tensors_is_deterministic(device, solver):
+    p = _small_sfm_problem()
+    runs = [
+        port.sfm.ba.bundle_adjust(p["state"], p["obs"], num_iterations=5, solver=solver)
+        for _ in range(2)
+    ]
+    (out, cost), (again, cost_again) = runs
+    assert out.points.is_cuda and cost.is_cuda
+    for field in ("rotations", "translations", "points"):
+        assert torch.equal(getattr(out, field), getattr(again, field))
+    assert torch.equal(cost, cost_again)
+    _, want = port.sfm.ba.bundle_adjust(
+        p["state"], p["obs"], num_iterations=5, solver=solver, device="cpu"
+    )
+    # float32 on both devices, sums in another order: held at a rate.
+    assert abs(cost.item() - want.item()) <= 1e-3 * want.item()
+    rms = (2.0 * cost.item() / p["obs"].capacity) ** 0.5
+    assert rms < 1.0
+
+
+@pytest.mark.parametrize("kwargs", [dict(), dict(assembly="scatter"), dict(solver="cg")])
+def test_bundle_adjust_on_card_with_skewed_visibility(device, kwargs):
+    """One landmark seen by every camera and one camera seeing every
+    landmark, the rest seen three times: the reductions by segment take any
+    spread of segment sizes, in the same bits run after run."""
+    cams, pts = 12, 600
+    p = _small_sfm_problem(seed=4, cams=cams, pts=pts, baseline=0.1)
+    obs = p["obs"]
+    cam, lm = obs.camera.long(), obs.landmark.long()
+    valid = (lm == 0) | (cam == 0) | ((lm + cam) % 6 == 0)
+    obs = dataclasses.replace(obs, valid=valid)
+    counts = torch.bincount(lm[valid], minlength=pts)
+    assert counts[0] == cams and counts.median() <= 3
+    runs = [port.sfm.ba.bundle_adjust(p["state"], obs, num_iterations=5, **kwargs) for _ in range(2)]
+    (out, cost), (again, cost_again) = runs
+    assert out.points.is_cuda
+    for field in ("rotations", "translations", "points"):
+        assert torch.equal(getattr(out, field), getattr(again, field))
+    assert torch.equal(cost, cost_again)
+    _, cost0 = port.sfm.ba.bundle_adjust(p["state"], obs, num_iterations=0, **kwargs)
+    _, want = port.sfm.ba.bundle_adjust(p["state"], obs, num_iterations=5, device="cpu", **kwargs)
+    assert cost.item() < cost0.item()
+    assert abs(cost.item() - want.item()) <= 1e-3 * want.item()
+
+    seg = torch.where(valid, lm, pts).cuda()
+    data = torch.from_numpy(np.random.default_rng(0).normal(size=(cams * pts, 3, 3))).float().cuda()
+    got = port.sfm.ba.segment_sum(data, port.sfm.ba.segment_tables(seg, pts))
+    want = torch.zeros((pts + 1, 3, 3)).index_add_(0, seg.cpu(), data.cpu())[:pts]
+    assert (got.cpu() - want).abs().max() <= 1e-4
+
+
+def test_two_view_solvers_on_card_from_cpu_tensors(device):
+    p = _small_sfm_problem(seed=1, cams=2, pts=120, baseline=0.8)
+    geo = port.sfm.geometry
+    rays1, rays2 = geo.backproject(p["uv"][0], p["k"]), geo.backproject(p["uv"][1], p["k"])
+    ok = torch.ones(120, dtype=torch.bool)
+    res = port.estimate_essential_ransac(
+        rays1, rays2, ok, torch.Generator().manual_seed(0), num_hypotheses=64,
+        inlier_threshold=2.0 / 300.0,
+    )
+    assert res.rotation.is_cuda and int(res.num_inliers) >= 100
+    rr = res.rotation.cpu().double() @ p["rots"][1].double().T
+    angle = torch.rad2deg(torch.acos(((rr.diagonal().sum() - 1) / 2).clamp(-1, 1)))
+    assert angle < 1.0
+    rot, t, rms = port.sfm.pnp.solve_pnp(
+        p["points"], p["uv"][1], ok, p["k"], p["rots"][0], p["ts"][0]
+    )
+    assert rot.is_cuda and rms.item() < 1.0
+    assert (t.cpu() - p["ts"][1]).abs().max() < 0.05
+
+    rng = np.random.default_rng(2)
+    desc = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(64, 128))).float(), dim=1)
+    perm = torch.from_numpy(rng.permutation(64))
+    ok = torch.ones(64, dtype=torch.bool)
+    matches = port.match_descriptors(desc, ok, desc[perm] + 0.01, ok)
+    assert matches.index.is_cuda and bool(matches.valid.all())
+    assert torch.equal(perm[matches.index.cpu().long()], torch.arange(64))
+
+
+def test_pose_graph_on_card_in_float32(device):
+    # Float32 through vmap(jacfwd): the dtype of every tangent must hold.
+    p = _small_sfm_problem(cams=6)
+    geo = port.sfm.geometry
+    src, dst = torch.arange(5), torch.arange(1, 6)
+    rel_r, rel_t = geo.compose(
+        p["rots"][dst], p["ts"][dst], *geo.invert(p["rots"][src], p["ts"][src])
+    )
+    edges = port.sfm.pose_graph.PoseGraphEdges(src.int(), dst.int(), rel_r, rel_t, torch.ones(5))
+    rng = np.random.default_rng(3)
+    drifted = p["ts"] + 0.05 * torch.from_numpy(rng.normal(size=(6, 3))).float()
+    drifted[0] = p["ts"][0]
+    rots, ts, cost = port.sfm.pose_graph.optimize_pose_graph(p["rots"], drifted, edges)
+    assert rots.is_cuda and rots.dtype == torch.float32
+    assert cost.item() < 1e-8
+    assert (ts.cpu() - p["ts"]).abs().max() < 1e-3

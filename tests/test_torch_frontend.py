@@ -229,11 +229,11 @@ def test_per_octave_describe_path_holds_the_same_keypoints(described):
 
 
 def test_describe_refuses_tf32_matrix_products_on_cuda(monkeypatch):
-    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import (
-        _require_full_float32_matmul,
+    from sift_scale_space_extrema_detection_tpu_torch.core.device import (
+        require_full_float32_matmul,
     )
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    _require_full_float32_matmul(torch.device("cpu"))
+    require_full_float32_matmul(torch.device("cpu"))
     with pytest.raises(RuntimeError, match="allow_tf32"):
-        _require_full_float32_matmul(torch.device("cuda", 0))
+        require_full_float32_matmul(torch.device("cuda", 0))

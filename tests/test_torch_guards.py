@@ -1,10 +1,12 @@
 """The port's rules: no JAX on its import path, no silent fallback from CUDA."""
 
+import re
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,6 +43,33 @@ def test_port_runs_without_importing_jax():
         port.build_scale_space(
             image.float(), port.SiftConfig(num_octaves=2), "cuda", device="cpu"
         )
+        space = port.build_scale_space(
+            image.double()[None] / 255, port.SiftConfig(num_octaves=2), "exact", device="cpu"
+        )
+        port.detect_from_dog(port.build_dog(space), port.SiftConfig(num_octaves=2))
+        from sift_scale_space_extrema_detection_tpu_torch.utils import oracle, synthetic
+        ok = torch.ones(20, dtype=torch.bool)
+        port.match_descriptors(torch.rand(20, 128), ok, torch.rand(20, 128), ok, device="cpu")
+        rays = torch.cat([torch.rand(20, 2), torch.ones(20, 1)], dim=1)
+        port.estimate_essential_ransac(
+            rays, rays + 0.01, ok, torch.Generator().manual_seed(0), num_hypotheses=8, device="cpu"
+        )
+        pts = torch.rand(20, 3) + torch.tensor([0.0, 0.0, 3.0])
+        k = torch.tensor([[100.0, 0, 50], [0, 100.0, 50], [0, 0, 1]])
+        uv = port.sfm.geometry.project(pts, k)
+        port.sfm.pnp.solve_pnp(pts, uv, ok, k, torch.eye(3), torch.zeros(3), iterations=2, device="cpu")
+        state = port.sfm.ba.BAState(torch.eye(3)[None], torch.zeros(1, 3), pts, k)
+        obs = port.sfm.ba.Observations(
+            torch.zeros(20, dtype=torch.int32), torch.arange(20, dtype=torch.int32), uv, ok
+        )
+        port.sfm.ba.bundle_adjust(state, obs, num_iterations=1, num_fixed_cameras=0, device="cpu")
+        edges = port.sfm.pose_graph.PoseGraphEdges(
+            torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+            torch.eye(3)[None], torch.zeros(1, 3), torch.ones(1),
+        )
+        port.sfm.pose_graph.optimize_pose_graph(
+            torch.eye(3).repeat(2, 1, 1), torch.zeros(2, 3), edges, num_iterations=1, device="cpu"
+        )
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not leaked, leaked
         assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
@@ -53,6 +82,16 @@ def test_port_runs_without_importing_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok ")
+
+
+def test_no_file_of_the_port_imports_jax():
+    banned = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|sift_scale_space_extrema_detection_tpu[. ])", re.M
+    )
+    files = sorted((REPO / "sift_scale_space_extrema_detection_tpu_torch").rglob("*.py"))
+    assert len(files) > 25
+    for path in files + [REPO / "chip_smoke.py"]:
+        assert not banned.search(path.read_text()), path
 
 
 def test_load_kernels_raises_without_nvcc(monkeypatch, tmp_path):
@@ -198,3 +237,92 @@ def test_entry_point_runs_on_the_card_unless_asked_for_the_cpu(name, monkeypatch
         ENTRY_POINTS[name]()
     tensors = _tensors(ENTRY_POINTS[name](device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+# --- the solvers' entry points -----------------------------------------------------
+
+
+def _solver_inputs():
+    """Tiny float32 inputs of the five solver entry points, from a seed."""
+    rng = np.random.default_rng(0)
+    k = torch.tensor([[100.0, 0, 50], [0, 100.0, 50], [0, 0, 1]])
+    pts = torch.from_numpy(rng.uniform([-1, -1, 3], [1, 1, 6], size=(24, 3))).float()
+    rots = port.sfm.geometry.so3_exp(torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.1, 0.0], [0.0, 0.2, 0.0]]))
+    ts = torch.tensor([[0.0, 0.0, 0.0], [-0.3, 0.0, 0.0], [-0.6, 0.0, 0.1]])
+    uv = port.sfm.geometry.project(port.sfm.geometry.transform(rots, ts, pts), k)  # (3, 24, 2)
+    ok = torch.ones(24, dtype=torch.bool)
+    state = port.sfm.ba.BAState(rots, ts, pts + 0.01, k)
+    obs = port.sfm.ba.Observations(
+        torch.arange(3, dtype=torch.int32).repeat_interleave(24),
+        torch.arange(24, dtype=torch.int32).repeat(3),
+        uv.reshape(-1, 2),
+        torch.ones(72, dtype=torch.bool),
+    )
+    edges = port.sfm.pose_graph.PoseGraphEdges(
+        torch.tensor([0, 1], dtype=torch.int32), torch.tensor([1, 2], dtype=torch.int32),
+        torch.eye(3).repeat(2, 1, 1), torch.zeros(2, 3), torch.ones(2),
+    )
+    desc = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(24, 128))).float(), dim=1)
+    rays = port.sfm.geometry.backproject(uv, k)
+    return dict(k=k, pts=pts, rots=rots, ts=ts, uv=uv, ok=ok, state=state, obs=obs,
+                edges=edges, desc=desc, rays=rays)
+
+
+_S = _solver_inputs()
+SOLVER_ENTRY_POINTS = {
+    "match_descriptors": lambda **kw: port.match_descriptors(
+        _S["desc"], _S["ok"], _S["desc"].flip(0), _S["ok"], **kw
+    ),
+    "estimate_essential_ransac": lambda **kw: port.estimate_essential_ransac(
+        _S["rays"][0], _S["rays"][1], _S["ok"], torch.Generator().manual_seed(0),
+        num_hypotheses=16, **kw,
+    ),
+    "solve_pnp": lambda **kw: port.sfm.pnp.solve_pnp(
+        _S["pts"], _S["uv"][1], _S["ok"], _S["k"], _S["rots"][0], _S["ts"][0], iterations=2, **kw
+    ),
+    "optimize_pose_graph": lambda **kw: port.sfm.pose_graph.optimize_pose_graph(
+        _S["rots"], _S["ts"], _S["edges"], num_iterations=2, **kw
+    ),
+    "bundle_adjust": lambda **kw: port.sfm.ba.bundle_adjust(
+        _S["state"], _S["obs"], num_iterations=2, **kw
+    ),
+    "bundle_adjust_cg": lambda **kw: port.sfm.ba.bundle_adjust(
+        _S["state"], _S["obs"], num_iterations=2, solver="cg", cg_iterations=4, **kw
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SOLVER_ENTRY_POINTS))
+def test_solver_runs_on_the_card_unless_asked_for_the_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SOLVER_ENTRY_POINTS[name]()
+    tensors = _tensors(SOLVER_ENTRY_POINTS[name](device="cpu"))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    assert all(bool(torch.isfinite(t).all()) for t in tensors if t.is_floating_point())
+
+
+@pytest.mark.parametrize("name", ["match_descriptors", "bundle_adjust", "bundle_adjust_cg"])
+def test_matrix_products_refuse_tf32_on_cuda(name, monkeypatch):
+    # The card is only pretended: the guard fires before a tensor moves.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        SOLVER_ENTRY_POINTS[name]()
+    SOLVER_ENTRY_POINTS[name](device="cpu")  # the CPU has no TF32
+
+
+def test_bundle_adjust_refuses_an_undersized_sorted_pad():
+    # Every landmark is seen by all three cameras.
+    with pytest.raises(ValueError, match="sorted_pad"):
+        port.sfm.ba.bundle_adjust(_S["state"], _S["obs"], num_iterations=1, sorted_pad=2, device="cpu")
+    port.sfm.ba.bundle_adjust(_S["state"], _S["obs"], num_iterations=1, sorted_pad=3, device="cpu")
+
+
+def test_ransac_draws_on_the_generators_device():
+    # A CPU generator serves any target device: the keys are drawn where
+    # the generator lives and copied.
+    from sift_scale_space_extrema_detection_tpu_torch.ops.ransac import sample_minimal_sets
+
+    idx = sample_minimal_sets(_S["ok"], 8, torch.Generator(device="cpu").manual_seed(3))
+    assert idx.shape == (8, 8) and idx.device.type == "cpu"

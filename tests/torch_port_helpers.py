@@ -7,6 +7,9 @@ import numpy as np
 import torch
 
 from sift_scale_space_extrema_detection_tpu_torch.core.types import Keypoints
+from sift_scale_space_extrema_detection_tpu_torch.ops.matching import Matches
+from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState, Observations
+from sift_scale_space_extrema_detection_tpu_torch.sfm.pose_graph import PoseGraphEdges
 
 
 def textured_images(seed: int, b: int, h: int, w: int) -> np.ndarray:
@@ -40,3 +43,25 @@ def _to_port(cls, result):
 
 def keypoints_to_port(result) -> Keypoints:
     return _to_port(Keypoints, result)
+
+
+def ba_state_to_port(state) -> BAState:
+    return _to_port(BAState, state)
+
+
+def observations_to_port(obs) -> Observations:
+    return _to_port(Observations, obs)
+
+
+def edges_to_port(edges) -> PoseGraphEdges:
+    return _to_port(PoseGraphEdges, edges)
+
+
+def matches_to_port(matches) -> Matches:
+    return _to_port(Matches, matches)
+
+
+def rotation_angle_deg(r_est, r_true) -> float:
+    """Angle of ``r_est·r_trueᵀ`` in degrees."""
+    rr = np.asarray(r_est) @ np.asarray(r_true).T
+    return float(np.degrees(np.arccos(np.clip((np.trace(rr) - 1) / 2, -1, 1))))
