@@ -87,6 +87,33 @@ Phases (any failure exits non-zero and prints no result):
     gives bit-equal poses and points. ``optimize_pose_graph`` on a 200-node
     drifted loop lowers its cost by >= 100×. LM iterations/s, ms per
     iteration and peak device memory are printed.
+15. SLAM, images → trajectory (``run_slam_from_images``, ``SlamSession``,
+    ``run_slam`` with checkpoint/resume). (a) The JAX package's own bar:
+    the 8 × 320×240 frames of ``tests/test_visual_slam.py``, more than 20
+    landmarks and ATE < 0.06; the same tracks with ``device="cpu"`` within
+    0.02 ATE. (b) Full width, ``benchmarks/slam_bench.py``'s default: 40 ×
+    480×640 uint16 frames of a dolly past a blob field, frontend chunks of
+    16, re-association over 2 keyframes: the three counts zeroed before and
+    read after (K1 9, K2 6, K3 0), a finite trajectory, more than 100
+    landmarks, the ATE printed (a reading), a second run bit-equal; both
+    kernels equal their plain versions on the first chunk. (c) The card's
+    described keypoints through the association on the card and with
+    ``device="cpu"``: visible masks agree on >= 99 % of entries. SLAM loses
+    (b)'s tracks at its bootstrap, in both packages, and then rounding alone
+    moves the ATE (``tools/torch_slam_sensitivity.py``): ``run_slam`` on the
+    card's tracks, card against CPU, is printed. The bar is held on the same
+    keypoints tracked with the JAX package's motion-prior match gate (30 px)
+    and room for 16,384 tracks, which SLAM solves: ``run_slam`` in float32
+    on the card and with ``device="cpu"``, ATE < 0.06 on both and within
+    0.02 of each other. (d) ``SlamSession`` over the same frames as (b): 7
+    provisional updates, K1 24, K2 16, K3 0, the ``mem://`` store empty after
+    ``finalize``, the result bit-equal to (b)'s (hence its ATE within 0.02).
+    (e) ``run_slam`` on (b)'s tracks stopped after the last frame of every
+    tracking window into a ``mem://`` checkpoint and resumed: each bit-equal
+    to the uninterrupted run.
+    (f) Frames/s of the batch run (host clock around synchronised runs after
+    a warm-up), its stage breakdown from a separate ``StageProfile`` run, the
+    streaming window step's median and largest latency, peak device memory.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -151,6 +178,15 @@ BA_MAX_RMS_PX = 1.0
 BA_SCATTER_RTOL = 1e-3
 POSE_GRAPH_NODES = 200
 POSE_GRAPH_GAIN = 100.0
+SLAM_FRAMES = 40
+SLAM_CHUNK = 16
+SLAM_REF_LANDMARKS = 20  # tests/test_visual_slam.py:50
+SLAM_REF_ATE = 0.06  # tests/test_visual_slam.py:54
+SLAM_MIN_LANDMARKS = 100
+SLAM_VISIBLE_AGREEMENT = 0.99
+SLAM_ATE_GAP = 0.02  # the reference's streaming bound, tests/test_visual_slam.py:234
+SLAM_MATCH_GATE_PX = 30.0  # ~1.7x the bench sequence's median flow between frames (17.4 px)
+SLAM_MAX_TRACKS = 16_384  # the default 4,096 run out near frame 19 of 40
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -357,6 +393,11 @@ def _circle_graph(rng, n: int, drift: float = 0.03):
     return np.stack(est_r), np.stack(est_t), src, dst, np.stack(rel_r), np.stack(rel_t)
 
 
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _host_ms(torch, fn, reps: int) -> float:
     """Mean host-clock time of ``fn()`` over ``reps`` calls, synchronised
     before and after, after one warm-up call."""
@@ -415,25 +456,68 @@ def _phase_oracle_leg(torch, port) -> None:
     _require(float_err <= ORACLE_ATOL, f"oracle leg: float fields differ by {float_err}")
 
 
-def _phase_two_view(torch, port, smi) -> tuple[float, float]:
-    """Phase 13: two frames → relative pose → structure → PnP, on the card,
-    against the same descriptors through ``device="cpu"``. The octave and
-    sampling kernels are held against their plain versions on these frames
-    and their slots; returns their largest differences ``(octave, sampling)``."""
+def _kernels_vs_plain(torch, frames, cfg, described):
+    """K1 and K2 against their plain versions on ``frames`` (unit-float, on
+    the card) at the shapes a described path gives them: the pyramids (DoG,
+    Gaussian stacks, masks), the slots both describe stages sample, and the
+    path's ``described`` result against the same path through the plain
+    versions. Returns ``(octave_err, masks_same, sample_err, stage_shapes,
+    slots_same, described_err)``."""
     from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
         build_pyramid_fused,
         detect_octaves,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import describe_compact
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
         window_sample_pair,
         window_sample_pair_reference,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
-        fused_octave,
         fused_octave_reference,
     )
+
+    dogs, masks, stacks = build_pyramid_fused(frames, cfg, emit_scales=True, device=frames.device)
+    plain_dogs, plain_masks, plain_stacks = build_pyramid_fused(
+        frames, cfg, octave_fn=fused_octave_reference, emit_scales=True, device=frames.device
+    )
+    octave_err = max(
+        (a - b).abs().max().item() for a, b in zip(dogs + stacks, plain_dogs + plain_stacks)
+    )
+    masks_same = min((a == b).float().mean().item() for a, b in zip(masks, plain_masks))
+    keypoints_list, _ = detect_octaves(dogs, cfg, masks)
+    stages = []
+
+    def recording(stacks, table, ys, xs):
+        stages.append((table, ys, xs))
+        return window_sample_pair(stacks, table, ys, xs)
+
+    describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
+    _require(len(stages) == 2, f"{len(stages)} describe stages sampled")
+    sample_err = 0.0
+    for table, ys, xs in stages:
+        got = window_sample_pair(stacks, table, ys, xs)
+        want = window_sample_pair_reference(stacks, table, ys, xs)
+        sample_err = max(sample_err, *((g - w).abs().max().item() for g, w in zip(got, want)))
+    plain_keypoints, _ = detect_octaves(plain_dogs, cfg, plain_masks)
+    plain_described = describe_compact(
+        plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
+    )
+    torch.cuda.synchronize()
+    slots_same = _slot_agreement(described, plain_described)
+    both = described.valid & plain_described.valid
+    described_err = (described.descriptor - plain_described.descriptor)[both].abs().max().item()
+    shapes = [tuple(st[1].shape) for st in stages]
+    return octave_err, masks_same, sample_err, shapes, slots_same, described_err
+
+
+def _phase_two_view(torch, port, smi) -> tuple[float, float]:
+    """Phase 13: two frames → relative pose → structure → PnP, on the card,
+    against the same descriptors through ``device="cpu"``. The octave and
+    sampling kernels are held against their plain versions on these frames
+    and their slots; returns their largest differences ``(octave, sampling)``."""
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.ops.ransac import _eight_point_nullvec
     from sift_scale_space_extrema_detection_tpu_torch.sfm import geometry as geo
     from sift_scale_space_extrema_detection_tpu_torch.sfm.pnp import pnp_dlt, solve_pnp
@@ -458,41 +542,13 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
 
     # Both kernels against their plain versions at this path's shapes: the
     # two frames' pyramids, then the slots the path samples, then the whole.
-    frames_dev = frames.cuda()
-    dogs, masks, stacks = build_pyramid_fused(frames_dev, cfg, emit_scales=True)
-    plain_dogs, plain_masks, plain_stacks = build_pyramid_fused(
-        frames_dev, cfg, octave_fn=fused_octave_reference, emit_scales=True
+    octave_err, masks_same, sample_err, stage_shapes, slots_same, described_err = (
+        _kernels_vs_plain(torch, frames.cuda(), cfg, described)
     )
-    octave_err = max(
-        (a - b).abs().max().item() for a, b in zip(dogs + stacks, plain_dogs + plain_stacks)
-    )
-    masks_same = min((a == b).float().mean().item() for a, b in zip(masks, plain_masks))
-    keypoints_list, _ = detect_octaves(dogs, cfg, masks)
-    stages = []
-
-    def recording(stacks, table, ys, xs):
-        stages.append((table, ys, xs))
-        return window_sample_pair(stacks, table, ys, xs)
-
-    describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
-    _require(len(stages) == 2, f"two views: {len(stages)} describe stages sampled")
-    sample_err = 0.0
-    for table, ys, xs in stages:
-        got = window_sample_pair(stacks, table, ys, xs)
-        want = window_sample_pair_reference(stacks, table, ys, xs)
-        sample_err = max(sample_err, *((g - w).abs().max().item() for g, w in zip(got, want)))
-    plain_keypoints, _ = detect_octaves(plain_dogs, cfg, plain_masks)
-    plain_described = describe_compact(
-        plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
-    )
-    torch.cuda.synchronize()
-    slots_same = _slot_agreement(described, plain_described)
-    both = described.valid & plain_described.valid
-    described_err = (described.descriptor - plain_described.descriptor)[both].abs().max().item()
     _say(
         f"two views, kernels vs plain on these frames: DoG and Gaussian stacks max abs diff "
         f"{octave_err:.3g}, masks equal on {100 * masks_same:.4f} % of pixels, window samples "
-        f"of both stages {[tuple(st[1].shape) for st in stages]} max abs diff {sample_err:.3g}; "
+        f"of both stages {stage_shapes} max abs diff {sample_err:.3g}; "
         f"the whole path through the plain versions: slot agreement {slots_same:.6f}, "
         f"descriptors max abs diff {described_err:.3g}"
     )
@@ -501,7 +557,6 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     _require(sample_err <= MAX_ABS_ERR, "two views: the sampling kernel differs from its plain version")
     _require(slots_same >= SLOT_AGREEMENT, "two views: slots differ from the plain path's")
     _require(described_err <= MAX_ABS_ERR, "two views: descriptors differ from the plain path's")
-    del dogs, masks, stacks, plain_dogs, plain_masks, plain_stacks, plain_described, stages
 
     def two_view(desc, valid, abs_x, abs_y, k_mat, where):
         """Matching → rays → RANSAC from one frame pair's described slots."""
@@ -699,6 +754,297 @@ def _phase_solvers(torch, port, smi) -> None:
     _require(bool(torch.isfinite(opt_r).all() & torch.isfinite(opt_t).all()),
              "pose graph: the poses are not finite")
     _require(cost.item() * POSE_GRAPH_GAIN <= cost0, "pose graph: the cost fell by less than 100x")
+
+
+def _render_dolly(synthetic, rng, pts, k_mat, num_frames, size, step):
+    """Frames of a slow lateral dolly (centre ``step·f``, a slow rotation)
+    past a textured blob field: the recipe of the JAX package's SLAM tests
+    and of ``benchmarks/slam_bench.py::render_sequence``, with the rotation
+    by Rodrigues in numpy. Returns ``(frames, rotations, translations)``."""
+    rpts, amps, sscales = synthetic.textured_blob_field(rng, pts)
+    rots, ts, frames = [], [], []
+    for f in range(num_frames):
+        r = _rodrigues([0.004 * f, -0.01 * f, 0.002 * f])
+        t = -r @ np.array([step[0] * f, step[1] * f, 0.0])
+        frames.append(synthetic.render_blob_image(
+            rpts, r, t, k_mat, size, amplitudes=amps, sigma_scales=sscales,
+            rng=np.random.default_rng(100 + f),
+        ))
+        rots.append(r)
+        ts.append(t)
+    return np.stack(frames), np.stack(rots), np.stack(ts)
+
+
+def _test_sequence(synthetic):
+    """``tests/test_visual_slam.py::_render_sequence``, seed 0: 8 frames at
+    320×240 past 110 blobs. Returns ``(frames, rotations, translations,
+    k_mat)``."""
+    rng = np.random.default_rng(0)
+    k_mat = np.array([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    pts = rng.uniform([-3.5, -1.8, 4.0], [3.5, 1.8, 9.0], size=(110, 3))
+    return (*_render_dolly(synthetic, rng, pts, k_mat, 8, (320, 240), (0.28, 0.02)), k_mat)
+
+
+def _bench_sequence(synthetic, num_frames: int, w: int, h: int):
+    """``benchmarks/slam_bench.py::render_sequence``, seed 0: the blob field
+    extends along the dolly path at constant density, the focal length
+    scales with the width. Returns ``(frames, rotations, translations,
+    k_mat)``."""
+    rng = np.random.default_rng(0)
+    focal = 260.0 * w / 320
+    k_mat = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+    x_hi = 3.5 + 0.14 * num_frames
+    n_pts = int(160 * (x_hi + 3.5) / 7.0)
+    pts = rng.uniform([-3.5, -1.8, 4.0], [x_hi, 1.8, 9.0], size=(n_pts, 3))
+    return (*_render_dolly(synthetic, rng, pts, k_mat, num_frames, (w, h), (0.14, 0.01)), k_mat)
+
+
+def slam_bench_recipe(port, frames: int = SLAM_FRAMES, width: int = WIDTH, height: int = HEIGHT):
+    """Phase 15's full-width SLAM recipe, ``benchmarks/slam_bench.py``'s
+    default: the frames (uint16, as the bench uploads them), the truth, the
+    configurations and the association arguments. ``solved`` holds the
+    association arguments of the variant SLAM solves (the match gate and
+    the track room, see phase 15 (c)). Returns a dict."""
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    images, gt_r, gt_t, k_mat = _bench_sequence(synthetic, frames, width, height)
+    return dict(
+        images=np.round(np.clip(images, 0.0, 1.0) * 65535.0).astype(np.uint16),
+        gt_r=gt_r,
+        gt_t=gt_t,
+        k_mat=k_mat,
+        sift_cfg=port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256,
+                                 describe_compaction=0.5, descriptor_grid_size=16,
+                                 orientation_grid_size=16),
+        slam_cfg=port.SlamConfig(ba_interval=5, ba_window=8, ba_iterations=6,
+                                 final_ba_rounds=2),
+        reassoc_window=2,
+        solved=dict(max_match_px=SLAM_MATCH_GATE_PX, max_tracks=SLAM_MAX_TRACKS),
+    )
+
+
+def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=HEIGHT):
+    """Phase 15: images → trajectory, batch and streaming, on ``dev``.
+    Returns ``(batch launches, streaming launches, octave_err, sample_err)``;
+    the launches are (K1, K2, K3) counts."""
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
+    from sift_scale_space_extrema_detection_tpu_torch.models.slam import (
+        build_tracks_from_described,
+        describe_frames,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint, synthetic
+    from sift_scale_space_extrema_detection_tpu_torch.utils.profile import StageProfile
+
+    def zero():
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+
+    def counts():
+        return fused_octave.launches, window_sample_pair.launches, blur_fused.launches
+
+    def finite(result):
+        return bool(np.isfinite(result.rotations).all() & np.isfinite(result.translations).all())
+
+    # (a) the JAX package's own bar, at its size; and the same tracks
+    # through the back end with device="cpu" (a sequence SLAM solves, so
+    # float32 rounding cannot move its ATE far).
+    images, gt_r, gt_t, k_mat = _test_sequence(synthetic)
+    small_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
+    small_slam = port.SlamConfig(ba_interval=3, ba_window=6)
+    zero()
+    pixels, visible, _ = port.build_tracks_from_images(images, small_cfg, k_mat, device=dev)
+    result = port.run_slam(pixels, visible, k_mat, small_slam, device=dev)
+    small_launches = counts()
+    ate = port.evaluate_ate(result, gt_r, gt_t, device=dev)
+    ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, small_slam, device="cpu"),
+                                gt_r, gt_t, device="cpu")
+    _say(
+        f"SLAM, the reference's bar: 8 x 320x240 frames, build_tracks_from_images + run_slam: "
+        f"launches {small_launches}, valid landmarks {int(result.landmark_valid.sum())} (bar > "
+        f"{SLAM_REF_LANDMARKS}), ATE {ate:.4f} (bar < {SLAM_REF_ATE}); the same tracks with "
+        f"device='cpu': ATE {ate_cpu:.4f} (bar: within {SLAM_ATE_GAP})"
+    )
+    _require(small_launches[0] > 0, "the SLAM path did not launch the octave kernel")
+    _require(int(result.landmark_valid.sum()) > SLAM_REF_LANDMARKS, "SLAM: too few landmarks")
+    _require(ate < SLAM_REF_ATE, "SLAM: ATE above the reference's bar")
+    _require(abs(ate - ate_cpu) < SLAM_ATE_GAP, "SLAM: the card's ATE differs from the CPU's")
+
+    # (b) full width: slam_bench.py's default recipe, uint16 frames.
+    recipe = slam_bench_recipe(port, frames, width, height)
+    images, gt_r, gt_t, k_mat = (recipe[k] for k in ("images", "gt_r", "gt_t", "k_mat"))
+    sift_cfg, slam_cfg = recipe["sift_cfg"], recipe["slam_cfg"]
+    chunks = -(-frames // SLAM_CHUNK)
+
+    def batch(**kw):
+        return port.run_slam_from_images(images, k_mat, sift_cfg, slam_cfg,
+                                         reassoc_window=recipe["reassoc_window"],
+                                         frontend_chunk=SLAM_CHUNK, device=dev, **kw)
+
+    batch()  # warm-up
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    result = batch()
+    _sync(torch, dev)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    ate_batch = port.evaluate_ate(result, gt_r, gt_t, device=dev)
+    again = batch()
+    same_bits = np.array_equal(again.rotations, result.rotations) and np.array_equal(
+        again.translations, result.translations
+    )
+    n_landmarks = int(result.landmark_valid.sum())
+    _say(
+        f"SLAM batch: {frames} x {height}x{width} uint16 frames, run_slam_from_images "
+        f"(ba_interval 5, ba_window 8, reassoc_window 2, chunks of {SLAM_CHUNK}): launches "
+        f"K1/K2/K3 {launches} (expected {(3 * chunks, 2 * chunks, 0)}), valid landmarks "
+        f"{n_landmarks} of {result.points.shape[0]} tracks, {result.num_observations} "
+        f"observations, ATE {ate_batch:.4f} (a reading: the reference's spread 0.05-1.58), "
+        f"second run bit-equal {same_bits}"
+    )
+    _require(launches == (3 * chunks, 2 * chunks, 0),
+             f"the SLAM batch path launched K1/K2/K3 {launches} times")
+    _require(finite(result), "SLAM batch: the trajectory is not finite")
+    _require(n_landmarks > SLAM_MIN_LANDMARKS, "SLAM batch: too few landmarks")
+    _require(same_bits, "SLAM batch: two runs differ")
+
+    # Both kernels against their plain versions on the first chunk.
+    first = torch.from_numpy(images[:SLAM_CHUNK]).to(dev)
+    octave_err, masks_same, sample_err, stage_shapes, slots_same, described_err = (
+        _kernels_vs_plain(torch, _as_unit_float(first), sift_cfg,
+                          port.detect_and_describe_batched(first, sift_cfg, device=dev))
+    )
+    _say(
+        f"SLAM, kernels vs plain on the first chunk {tuple(first.shape)}: DoG and Gaussian stacks "
+        f"max abs diff {octave_err:.3g}, masks equal on {100 * masks_same:.4f} % of pixels, "
+        f"window samples {stage_shapes} max abs diff {sample_err:.3g}; the chunk through the "
+        f"plain versions: slot agreement {slots_same:.6f}, descriptors max abs diff "
+        f"{described_err:.3g}"
+    )
+    _require(max(octave_err, sample_err, described_err) <= MAX_ABS_ERR,
+             "SLAM: a kernel differs from its plain version on the first chunk")
+    _require(masks_same >= MASK_AGREEMENT and slots_same >= SLOT_AGREEMENT,
+             "SLAM: masks or slots differ from the plain path's on the first chunk")
+    del first
+
+    # (c) the card's described keypoints through the association on the
+    # card and on the CPU. SLAM loses these tracks at its bootstrap, in both
+    # packages (frame 1 comes out moving along the optical axis), and then a
+    # rounding difference flips its gates: the ATE of run_slam on the card's
+    # tracks, card against CPU, is a reading. The bar is held on the same
+    # keypoints tracked with the match gate and the track room SLAM needs
+    # here (PERF.md §6).
+    described = describe_frames(images, sift_cfg, SLAM_CHUNK, device=dev)
+    track = dict(reassoc_window=recipe["reassoc_window"])
+    pixels, visible, _ = build_tracks_from_described(described, k_mat, device=dev, **track)
+    cpu_described = type(described)(**{k: v.cpu() for k, v in vars(described).items()})
+    _, cpu_visible, _ = build_tracks_from_described(cpu_described, k_mat, device="cpu", **track)
+    n = max(visible.shape[1], cpu_visible.shape[1])
+    padded = [np.pad(v, ((0, 0), (0, n - v.shape[1]))) for v in (visible, cpu_visible)]
+    agreement = float((padded[0] == padded[1]).mean())
+    card = port.run_slam(pixels, visible, k_mat, slam_cfg, device=dev)
+    ate_card = port.evaluate_ate(card, gt_r, gt_t, device=dev)
+    ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, slam_cfg, device="cpu"),
+                                gt_r, gt_t, device="cpu")
+    g_pixels, g_visible, _ = build_tracks_from_described(described, k_mat, device=dev, **track,
+                                                         **recipe["solved"])
+    ate_solved = port.evaluate_ate(port.run_slam(g_pixels, g_visible, k_mat, slam_cfg, device=dev),
+                                   gt_r, gt_t, device=dev)
+    ate_solved_cpu = port.evaluate_ate(
+        port.run_slam(g_pixels, g_visible, k_mat, slam_cfg, device="cpu"), gt_r, gt_t, device="cpu"
+    )
+    _say(
+        f"SLAM card against device='cpu': tracks {visible.shape[1]} vs {cpu_visible.shape[1]}, "
+        f"visible masks agree on {agreement:.6f} of entries; run_slam on the card's tracks, "
+        f"float32: ATE {ate_card:.4f} on the card, {ate_cpu:.4f} on the CPU (a reading); on the "
+        f"same keypoints tracked with a {SLAM_MATCH_GATE_PX:g} px match gate and room for "
+        f"{SLAM_MAX_TRACKS} tracks ({g_visible.shape[1]} tracks): ATE {ate_solved:.4f} on the card, "
+        f"{ate_solved_cpu:.4f} on the CPU (bars: < {SLAM_REF_ATE} and within {SLAM_ATE_GAP})"
+    )
+    _require(agreement >= SLAM_VISIBLE_AGREEMENT, "SLAM: the card's tracks differ from the CPU's")
+    _require(max(ate_solved, ate_solved_cpu) < SLAM_REF_ATE,
+             "SLAM: the gated full-width sequence is not solved")
+    _require(abs(ate_solved - ate_solved_cpu) < SLAM_ATE_GAP,
+             "SLAM: the card's float32 ATE differs from the CPU's")
+
+    # (d) streaming over the same frames: each step verifies the batch run's
+    # pairs and solves the batch run's windows (models/slam.py), so the
+    # result is the batch run's, bit for bit.
+    stored = set(checkpoint._MEM_STORE)
+    sess = port.SlamSession(k_mat, sift_cfg, slam_cfg, reassoc_window=recipe["reassoc_window"],
+                            device=dev)
+    zero()
+    step_ms = []
+    for image in images:
+        t0 = time.perf_counter()
+        update = sess.add_frame(image)
+        if update is not None:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    streamed = sess.finalize()
+    stream_launches = counts()
+    ate_stream = port.evaluate_ate(streamed, gt_r, gt_t, device=dev)
+    stream_same = np.array_equal(streamed.rotations, result.rotations) and np.array_equal(
+        streamed.translations, result.translations
+    )
+    start, win = 2, slam_cfg.ba_interval
+    steps = sum(1 for t in range(1, frames + 1) if t >= start + win and (t - start) % win == 0)
+    calls = steps + ((frames - start) % win != 0)
+    _say(
+        f"SLAM streaming: SlamSession over the same {frames} frames: {len(step_ms)} provisional "
+        f"updates (expected {steps}), launches K1/K2/K3 {stream_launches} (expected "
+        f"{(3 * calls, 2 * calls, 0)}), after finalize bit-equal to the batch run {stream_same}, "
+        f"ATE {ate_stream:.4f} against batch {ate_batch:.4f} (bar: within {SLAM_ATE_GAP}); "
+        f"mem:// store empty again {set(checkpoint._MEM_STORE) == stored}"
+    )
+    _require(len(step_ms) == steps, "SLAM streaming: wrong number of provisional updates")
+    _require(stream_launches == (3 * calls, 2 * calls, 0),
+             f"the streaming path launched K1/K2/K3 {stream_launches} times")
+    _require(finite(streamed), "SLAM streaming: the trajectory is not finite")
+    _require(abs(ate_stream - ate_batch) < SLAM_ATE_GAP, "SLAM streaming: ATE far from batch")
+    _require(stream_same, "SLAM streaming: the result differs from the batch run's")
+    _require(set(checkpoint._MEM_STORE) == stored, "SLAM streaming: the mem:// store leaked")
+
+    # (e) resume from a mem:// checkpoint after every tracking window, each
+    # bit-equal to the uninterrupted run.
+    store = "mem://chip_smoke_resume"
+    stops = list(range(start + win - 1, frames - 1, win))
+    resume_same = []
+    for stop in stops:
+        port.run_slam(pixels, visible, k_mat, slam_cfg, checkpoint_dir=store, _stop_after=stop,
+                      device=dev)
+        resumed = port.run_slam(pixels, visible, k_mat, slam_cfg, checkpoint_dir=store,
+                                resume=True, device=dev)
+        checkpoint.remove_checkpoint(store)
+        resume_same.append(np.array_equal(resumed.rotations, card.rotations)
+                           and np.array_equal(resumed.translations, card.translations))
+    _say(f"SLAM resume: stopped after frames {stops}, resumed: bit-equal {resume_same}")
+    _require(all(resume_same), "SLAM: a resumed run differs from the uninterrupted one")
+
+    # (f) timings.
+    prof = StageProfile()
+    batch(profile=prof)
+    report = prof.report(total_frames=frames)
+    stages = ", ".join(
+        f"{name} {v['ms_per_call'] * v['calls']:.1f} ms/{v['calls']}"
+        for name, v in report["stages"].items()
+    )
+    _say(
+        f"timing SLAM batch: {1e3 * seconds:.1f} ms for {frames} frames, {frames / seconds:.2f} "
+        f"frames/s, peak device memory {peak_gib:.2f} GiB; streaming window step median "
+        f"{np.median(step_ms):.1f} ms, max {max(step_ms):.1f} ms over {len(step_ms)} steps "
+        f"[{smi}]"
+    )
+    _say(
+        f"timing SLAM batch stages (profiled run, a synchronise at each stage boundary, "
+        f"{report['total_s'] * 1e3:.1f} ms in all, {report['device_round_trips']} round trips): "
+        f"{stages} [{smi}]"
+    )
+    return launches, stream_launches, octave_err, sample_err
 
 
 def main() -> int:
@@ -1315,6 +1661,10 @@ def main() -> int:
     two_view_err = _phase_two_view(torch, port, smi)
     max_err, sample_err = max(max_err, two_view_err[0]), max(sample_err, two_view_err[1])
     _phase_solvers(torch, port, smi)
+    slam_launches, stream_launches, slam_octave_err, slam_sample_err = _phase_slam(
+        torch, port, smi, device
+    )
+    max_err, sample_err = max(max_err, slam_octave_err), max(sample_err, slam_sample_err)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -1325,7 +1675,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "octave.cu",
                 "replaces": PALLAS + "octave.py:437",
-                "launches": describe_launches["fused_octave"],
+                "launches": describe_launches["fused_octave"] + slam_launches[0]
+                + stream_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -1338,7 +1689,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "describe.cu",
                 "replaces": PALLAS + "describe.py:288",
-                "launches": describe_launches["window_sample_pair"],
+                "launches": describe_launches["window_sample_pair"] + slam_launches[1]
+                + stream_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -1351,7 +1703,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
-                "launches": blur_launches,
+                "launches": blur_launches + slam_launches[2] + stream_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

@@ -8,8 +8,11 @@ stand-alone blur hand-written in CUDA for Hopper (sm_90a); the float64
 ``blur="exact"`` leg that is bit-faithful to the reference oracle
 (``utils/oracle.py``); and the geometry back end: descriptor matching,
 RANSAC two-view pose, and the ``sfm`` subpackage (PnP, pose graph, Schur
-bundle adjustment, trajectory evaluation). The package imports torch and
-numpy only; the JAX package stays the reference it is tested against.
+bundle adjustment, trajectory evaluation); and SLAM on top: the
+incremental back end with checkpoint/resume (``models/slam.py``), visual
+tracks from images, and the streaming session (``models/streaming.py``).
+The package imports torch and numpy only; the JAX package stays the
+reference it is tested against.
 """
 
 from .config import SiftConfig, from_reference_config
@@ -37,6 +40,15 @@ from .models.frontend import (
     detect_batched,
     detect_from_dog,
 )
+from .models.slam import (
+    SlamConfig,
+    SlamResult,
+    build_tracks_from_images,
+    evaluate_ate,
+    run_slam,
+    run_slam_from_images,
+)
+from .models.streaming import SlamSession
 from . import sfm
 from .ops.descriptor import DescribedKeypoints, concat_described
 from .ops.matching import Matches, descriptor_distances, match_descriptors
@@ -65,6 +77,13 @@ __all__ = [
     "refine_relative_pose",
     "sampson_error",
     "sfm",
+    "SlamConfig",
+    "SlamResult",
+    "SlamSession",
+    "build_tracks_from_images",
+    "evaluate_ate",
+    "run_slam",
+    "run_slam_from_images",
     "BLUR_STRATEGIES",
     "build_dog",
     "build_pyramid_fused",

@@ -431,3 +431,105 @@ def test_pose_graph_on_card_in_float32(device):
     assert rots.is_cuda and rots.dtype == torch.float32
     assert cost.item() < 1e-8
     assert (ts.cpu() - p["ts"]).abs().max() < 1e-3
+
+
+def _orbit(seed=3, frames=8, landmarks=150):
+    from sift_scale_space_extrema_detection_tpu_torch.utils.synthetic import orbit_sequence
+
+    return orbit_sequence(np.random.default_rng(seed), num_frames=frames,
+                          num_landmarks=landmarks, noise_px=0.3)
+
+
+def test_run_slam_on_card_agrees_with_cpu(device):
+    seq = _orbit()
+    cfg = port.SlamConfig(ba_interval=3)
+    got = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg)
+    want = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg, device="cpu")
+    ate = port.evaluate_ate(got, seq.rotations, seq.translations)
+    ate_cpu = port.evaluate_ate(want, seq.rotations, seq.translations, device="cpu")
+    assert ate < 0.1 and abs(ate - ate_cpu) < 0.02
+    assert (got.landmark_valid == want.landmark_valid).mean() >= 0.99
+    assert got.num_observations > 100
+    again = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg)
+    assert np.array_equal(again.rotations, got.rotations)
+    assert np.array_equal(again.translations, got.translations)
+
+
+def test_run_slam_on_card_resumes_bit_equal_after_every_window(device):
+    seq = _orbit(seed=5, frames=14, landmarks=200)
+    cfg = port.SlamConfig(ba_interval=3)
+    full = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg)
+    for stop in range(4, 13, 3):  # the last frame of each window but the final one
+        port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg, checkpoint_dir="mem://cuda_resume",
+                      _stop_after=stop)
+        resumed = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg,
+                                checkpoint_dir="mem://cuda_resume", resume=True)
+        assert np.array_equal(resumed.rotations, full.rotations), stop
+        assert np.array_equal(resumed.translations, full.translations), stop
+
+
+def test_pair_verification_on_card_does_not_depend_on_its_group(device):
+    # The streaming session verifies a few pairs a step, the batch run all
+    # of them: a pair's inliers must not depend on the pairs beside it.
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as pslam
+
+    seq = _orbit(seed=4, frames=12, landmarks=120)
+    rng = np.random.default_rng(0)
+    uv_a = np.zeros((11, 128, 2), np.float32)
+    uv_b = np.zeros((11, 128, 2), np.float32)
+    mask = np.zeros((11, 128), bool)
+    for p in range(11):
+        ids = np.flatnonzero(seq.visible[p] & seq.visible[p + 1])
+        uv2 = seq.pixels[p + 1, ids].copy()
+        wrong = rng.permutation(len(ids))[: len(ids) // 3]
+        uv2[wrong] = uv2[np.roll(wrong, 1)]
+        uv_a[p, : len(ids)], uv_b[p, : len(ids)], mask[p, : len(ids)] = seq.pixels[p, ids], uv2, True
+    thr = 2.0 / seq.k_mat[0, 0]
+    dev = torch.device("cuda")
+    together = pslam._verify_pairs(uv_a, uv_b, mask, seq.k_mat, range(1, 12), thr, 64, 256, dev)
+    assert together.sum() > 100
+    for p in range(11):
+        alone = pslam._verify_pairs(uv_a[p : p + 1], uv_b[p : p + 1], mask[p : p + 1], seq.k_mat,
+                                    [p + 1], thr, 64, 256, dev)
+        assert np.array_equal(alone[0], together[p]), p
+
+
+def test_slam_session_on_card_leaves_the_mem_store_empty(device):
+    from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint
+    from sift_scale_space_extrema_detection_tpu_torch.utils.synthetic import (
+        render_blob_image,
+        textured_blob_field,
+    )
+
+    rng = np.random.default_rng(12)
+    k_mat = np.array([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    rpts, amps, ss = textured_blob_field(rng, rng.uniform([-3.5, -1.8, 4.0], [3.5, 1.8, 9.0],
+                                                          size=(110, 3)))
+    frames = [
+        render_blob_image(rpts, np.eye(3), -np.array([0.28 * f, 0.02 * f, 0.0]), k_mat, (320, 240),
+                          amplitudes=amps, sigma_scales=ss, rng=np.random.default_rng(100 + f))
+        for f in range(10)
+    ]
+    stored = set(checkpoint._MEM_STORE)
+    sift_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
+    slam_cfg = port.SlamConfig(ba_interval=3, ba_window=6, bootstrap_baseline=2)
+    sess = port.SlamSession(k_mat, sift_cfg, slam_cfg)
+    assert sess.device.type == "cuda"
+    updates = [sess.add_frame(f) for f in frames]
+    assert sum(u is not None for u in updates) == 3
+    assert set(checkpoint._MEM_STORE) != stored
+    result = sess.finalize()
+    assert set(checkpoint._MEM_STORE) == stored
+    assert np.isfinite(result.translations).all() and result.landmark_valid.sum() > 20
+    batch = port.run_slam_from_images(np.stack(frames), k_mat, sift_cfg, slam_cfg, reassoc_window=2)
+    assert np.array_equal(result.rotations, batch.rotations)
+    assert np.array_equal(result.translations, batch.translations)
+
+
+def test_slam_entry_points_raise_without_a_card(device, monkeypatch):
+    seq = _orbit(frames=4, landmarks=40)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.run_slam(seq.pixels, seq.visible, seq.k_mat)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.SlamSession(seq.k_mat)

@@ -70,6 +70,12 @@ def test_port_runs_without_importing_jax():
         port.sfm.pose_graph.optimize_pose_graph(
             torch.eye(3).repeat(2, 1, 1), torch.zeros(2, 3), edges, num_iterations=1, device="cpu"
         )
+        from sift_scale_space_extrema_detection_tpu_torch.utils import debug, metrics, profile
+        from sift_scale_space_extrema_detection_tpu_torch.utils.synthetic import orbit_sequence
+        seq = orbit_sequence(np.random.default_rng(3), num_frames=6, num_landmarks=60)
+        res = port.run_slam(seq.pixels, seq.visible, seq.k_mat, port.SlamConfig(ba_interval=3),
+                            checkpoint_dir="mem://no_jax", device="cpu")
+        debug.assert_finite(res.rotations)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not leaked, leaked
         assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
@@ -326,3 +332,46 @@ def test_ransac_draws_on_the_generators_device():
 
     idx = sample_minimal_sets(_S["ok"], 8, torch.Generator(device="cpu").manual_seed(3))
     assert idx.shape == (8, 8) and idx.device.type == "cpu"
+
+
+# --- the SLAM entry points ----------------------------------------------------------
+
+
+def _slam_inputs():
+    """Three frames of twenty landmarks seen from a short dolly, and tiny
+    images: enough for each SLAM entry point to start."""
+    rng = np.random.default_rng(1)
+    k = np.array([[100.0, 0, 50], [0, 100.0, 50], [0, 0, 1]])
+    pts = rng.uniform([-1, -1, 3], [1, 1, 6], size=(20, 3))
+    ts = np.array([[0.0, 0, 0], [-0.2, 0, 0], [-0.4, 0, 0]])
+    cam = pts[None] + ts[:, None]
+    pixels = cam[..., :2] / cam[..., 2:] * 100.0 + 50.0
+    visible = np.ones((3, 20), bool)
+    images = (rng.random((3, 24, 32)) * 255).astype(np.uint8)
+    return k, pixels, visible, images
+
+
+_K, _PIX, _VIS, _IMGS = _slam_inputs()
+_RESULT = port.SlamResult(np.eye(3)[None].repeat(3, 0), -np.eye(3)[:, :3] * 0.1, np.zeros((1, 3)),
+                          np.ones(1, bool), 0)
+SLAM_ENTRY_POINTS = {
+    "run_slam": lambda **kw: port.run_slam(_PIX, _VIS, _K, **kw),
+    "build_tracks_from_images": lambda **kw: port.build_tracks_from_images(
+        _IMGS, _CFG, k_mat=_K, **kw
+    ),
+    "run_slam_from_images": lambda **kw: port.run_slam_from_images(_IMGS, _K, _CFG, **kw),
+    "SlamSession": lambda **kw: port.SlamSession(_K, _CFG, **kw),
+    "evaluate_ate": lambda **kw: port.evaluate_ate(_RESULT, _RESULT.rotations, _RESULT.translations,
+                                                   **kw),
+    "measure_loop_edge": lambda **kw: port.models.slam.measure_loop_edge(
+        _PIX, _VIS, _K, _RESULT.rotations, _RESULT.translations, 0, 2, port.SlamConfig(), **kw
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLAM_ENTRY_POINTS))
+def test_slam_entry_point_runs_on_the_card_unless_asked_for_the_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SLAM_ENTRY_POINTS[name]()
+    SLAM_ENTRY_POINTS[name](device="cpu")
