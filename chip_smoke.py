@@ -114,6 +114,36 @@ Phases (any failure exits non-zero and prints no result):
     (f) Frames/s of the batch run (host clock around synchronised runs after
     a warm-up), its stage breakdown from a separate ``StageProfile`` run, the
     streaming window step's median and largest latency, peak device memory.
+16. the user surfaces, ``cli.main`` and ``evaluate.main`` in-process on the
+    card. (a) The CLI at full width: one 480×640 frame of the bench recipe
+    written as a PNG by the port's writer, 5 octaves × 3 scales, capacity
+    1024, ``--descriptors``: K1/K2/K3 launched 5/10/0 (one K1 launch in its
+    clamped mode); its ``keypoints.json`` against the same command with
+    ``--device cpu`` (slot agreement >= 0.999 by (octave, scale, row,
+    column), p99 position delta <= 0.1 px) and its ``descriptors.npz``
+    (rows matched within 0.1 px and 1e-3 rad on >= 99.9 %, min cosine >=
+    0.999). ``--blur cuda`` launches K3 once per blurred scale (0/10/26) at
+    the same bars; ``--blur matmul`` runs with TF32 off (its scale space
+    within 1e-5 of the tap loop's) and is refused with it on. (b) One
+    1241×376 KITTI frame through the CLI as it is and padded to 1280×384 by
+    ``pad_to_tpu_friendly``: card against CPU at (a)'s bars, and K1 against
+    its plain version on each frame's octaves (max abs diff <= 1e-6, masks
+    >= 99.99 %). (c) The on-disk rehearsal: 200 × 640×480 frames in the TUM
+    layout and 200 × 1241×376 in the KITTI layout, written by the port's
+    writers from ``utils/synthetic.py`` (the dolly of ``slam_bench.py``'s
+    recipe, seed 0); ``evaluate.main`` on each with its defaults: every
+    frame decoded by the native loader, equal to the written pixels / 255;
+    the trajectory bit-equal to ``run_slam_from_images`` on the same decoded
+    and padded frames in this process; 200 rows read back from the
+    trajectory file; K1/K2/K3 launched 52/26/0; K1 and K2 against their
+    plain versions on the first 16 frames evaluate handed to SLAM, with its
+    SiftConfig (4 octaves, capacity 512; phase 15's bars). Load seconds,
+    SLAM frames/s, peak device memory and ATE / RPE / RRE are printed as
+    readings: the defaults lose both sequences, in both packages. Then
+    ``evaluate`` on the TUM sequence's first 40 frames with ``--match-gate
+    30 --reassoc 2 --max-tracks 16384``, which SLAM solves, on the card and
+    with ``--device cpu``: launches 12/6/0, both ATEs < 0.06 and within 0.02
+    of each other (phase 15 (c)'s bars).
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -187,6 +217,10 @@ SLAM_VISIBLE_AGREEMENT = 0.99
 SLAM_ATE_GAP = 0.02  # the reference's streaming bound, tests/test_visual_slam.py:234
 SLAM_MATCH_GATE_PX = 30.0  # ~1.7x the bench sequence's median flow between frames (17.4 px)
 SLAM_MAX_TRACKS = 16_384  # the default 4,096 run out near frame 19 of 40
+SURFACE_FRAMES = 200  # each on-disk rehearsal sequence
+SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card and on the CPU
+KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
+MATMUL_ATOL = 1e-5
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -502,7 +536,7 @@ def _kernels_vs_plain(torch, frames, cfg, described):
     plain_described = describe_compact(
         plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
     )
-    torch.cuda.synchronize()
+    _sync(torch, frames.device)
     slots_same = _slot_agreement(described, plain_described)
     both = described.valid & plain_described.valid
     described_err = (described.descriptor - plain_described.descriptor)[both].abs().max().item()
@@ -1045,6 +1079,371 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
         f"{stages} [{smi}]"
     )
     return launches, stream_launches, octave_err, sample_err
+
+
+def cli_records(outdir):
+    """``keypoints.json``'s records and ``descriptors.npz`` (or ``None``) of a
+    CLI run."""
+    import os
+
+    with open(os.path.join(outdir, "keypoints.json")) as f:
+        records = json.load(f)["keypoints"]
+    path = os.path.join(outdir, "descriptors.npz")
+    if not os.path.exists(path):
+        return records, None
+    with np.load(path) as npz:
+        return records, dict(npz)
+
+
+def record_agreement(got, want):
+    """``(matched share, p99 position delta px)`` of two runs' keypoint
+    records, matched by (octave, scale, row, column) at acceptance; the share
+    is over the larger count (the slot agreement of a CLI's output)."""
+    import collections
+
+    def key(r):
+        return r["octave"], r["scaleLevel"], r["localY"], r["localX"]
+
+    left = collections.defaultdict(list)
+    for r in want:
+        left[key(r)].append(r)
+    deltas = [np.hypot(r["absoluteX"] - w["absoluteX"], r["absoluteY"] - w["absoluteY"])
+              for r in got if left[key(r)] for w in [left[key(r)].pop()]]
+    p99 = float(np.quantile(deltas, 0.99)) if deltas else float("nan")
+    return len(deltas) / max(len(got), len(want), 1), p99
+
+
+def descriptor_cosines(got, want):
+    """``(matched share, min cosine)`` of two runs' descriptor rows: each row
+    matched to the nearest row of ``want`` within 0.1 px and 1e-3 rad."""
+    pos = np.hypot(got["abs_x"][:, None] - want["abs_x"][None],
+                   got["abs_y"][:, None] - want["abs_y"][None])
+    dtheta = np.abs(np.angle(np.exp(1j * (got["theta"][:, None] - want["theta"][None]))))
+    cost = np.where((pos <= P99_PX) & (dtheta <= P99_THETA), pos + dtheta, np.inf)
+    nearest = cost.argmin(axis=1)
+    ok = np.isfinite(cost[np.arange(len(nearest)), nearest])
+    cos = (got["descriptor"][ok] * want["descriptor"][nearest[ok]]).sum(axis=1)
+    share = ok.sum() / max(len(got["abs_x"]), len(want["abs_x"]), 1)
+    return share, float(cos.min()) if cos.size else float("nan")
+
+
+def write_rehearsal_sequence(fmt, work, frames, size):
+    """Phase 16's on-disk rehearsal sequence: ``frames`` frames of
+    ``_bench_sequence`` (``benchmarks/slam_bench.py``'s dolly, seed 0) at
+    ``size`` (width, height), written under ``work`` by the port's writers
+    in the TUM (``fmt="tum"``) or KITTI (``"kitti"``, sequence 00) layout.
+    Returns ``(argv, pixels, paths)``: ``evaluate``'s positional arguments,
+    the 8-bit pixels written and the frames' files."""
+    import os
+
+    from sift_scale_space_extrema_detection_tpu_torch.data import (
+        write_kitti_sequence,
+        write_tum_sequence,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    images, rots, ts, k_mat = _bench_sequence(synthetic, frames, *size)
+    pixels = np.clip(np.round(images * 255.0), 0, 255).astype(np.uint8)
+    if fmt == "tum":
+        root = os.path.join(work, "rgbd_dataset_freiburg1_rehearsal")
+        write_tum_sequence(root, images, 1305031102.175 + np.arange(frames) / 30.0, rots, ts)
+        paths = [os.path.join(root, "rgb", f"{1305031102.175 + f / 30.0:.6f}.png")
+                 for f in range(frames)]
+        return [root], pixels, paths
+    root = os.path.join(work, "kitti")
+    write_kitti_sequence(root, "00", images, np.arange(frames) * 0.1, rots, ts, k_mat)
+    paths = [os.path.join(root, "sequences", "00", "image_0", f"{f:06d}.png")
+             for f in range(frames)]
+    return [root, "--sequence", "00"], pixels, paths
+
+
+def _quiet(main, argv):
+    """``main(argv)`` with its standard output captured: ``(rc, text)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, HEIGHT),
+                    kitti_size=KITTI_SIZE, solved_frames=SURFACE_SOLVED_FRAMES):
+    """Phase 16: the user surfaces, ``cli.main`` and ``evaluate.main``,
+    in-process on ``dev``. Returns ``(launches, octave_err)``: the (K1, K2,
+    K3) launches of the paths driven here, and the octave kernel's largest
+    difference from its plain version at KITTI dims."""
+    import os
+    import shutil
+
+    from sift_scale_space_extrema_detection_tpu_torch import cli, evaluate
+    from sift_scale_space_extrema_detection_tpu_torch.core import native_io
+    from sift_scale_space_extrema_detection_tpu_torch.core.image import (
+        pad_to_tpu_friendly,
+        write_png,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.data import read_tum_trajectory
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
+        fused_octave,
+        fused_octave_reference,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.resize import downsample2x_nn
+
+    on_card = dev.type == "cuda"
+    card = [] if on_card else ["--device", "cpu"]  # a CPU rehearsal runs both legs there
+    total = [0, 0, 0]
+
+    def zero():
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+        fused_octave.clamped_launches = 0
+
+    def counts():
+        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches)
+        for i, n in enumerate(got):
+            total[i] += n
+        return got
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_surfaces")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = port.SiftConfig()  # the CLI's: 5 octaves x 3 scales, capacity 1024
+    n_blurs = cfg.num_octaves * cfg.scales_per_octave_total - (cfg.num_octaves - 1)
+
+    def cli_pair(path, name, flags, expected):
+        """The CLI on ``dev`` (launches counted) and with ``--device cpu``,
+        held to the bars; returns the card run's seconds and records."""
+        out = os.path.join(work, name)
+        zero()
+        t0 = time.perf_counter()
+        rc, text = _quiet(cli.main, [path, "-o", out + "_card", *flags, *card])
+        seconds = time.perf_counter() - t0
+        launches, clamped = counts(), fused_octave.clamped_launches
+        _require(rc == 0, f"cli {name}: exit code {rc}")
+        rc, _ = _quiet(cli.main, [path, "-o", out + "_cpu", *flags, "--no-galleries",
+                                  "--device", "cpu"])
+        _require(rc == 0, f"cli {name} --device cpu: exit code {rc}")
+        got, got_desc = cli_records(out + "_card")
+        want, want_desc = cli_records(out + "_cpu")
+        matched, p99 = record_agreement(got, want)
+        share, min_cos = descriptor_cosines(got_desc, want_desc)
+        timing = [ln for ln in text.splitlines() if ln.startswith("pipeline:")]
+        _say(
+            f"cli {name} {' '.join(flags)}: launches K1/K2/K3 {launches} (expected {expected}), "
+            f"K1 clamped {clamped}; {len(got)} keypoints against {len(want)} with --device cpu: "
+            f"slot agreement {matched:.6f}, p99 position delta {p99:.3g} px; {len(got_desc['abs_x'])} "
+            f"descriptors, matched {share:.6f}, min cosine {min_cos:.6f}; {timing[0]}, "
+            f"{seconds:.2f} s for the whole command [{smi}]"
+        )
+        if on_card:
+            _require(launches == expected, f"cli {name}: launches {launches}, expected {expected}")
+        _require(len(want) > 0 and matched >= SLOT_AGREEMENT and p99 <= P99_PX,
+                 f"cli {name}: the card's keypoints differ from the CPU's")
+        _require(share >= SLOT_AGREEMENT and min_cos >= MIN_COSINE,
+                 f"cli {name}: the card's descriptors differ from the CPU's")
+        return clamped, got
+
+    # (a) the CLI at full width: one frame of the bench recipe as a PNG.
+    frame = np.round(_make_batch(1, size[1], size[0])[0] * 255.0).astype(np.uint8)
+    path = os.path.join(work, "frame.png")
+    write_png(path, frame)
+    desc = ["--descriptors"]
+    clamped, _ = cli_pair(path, "fused", desc, (cfg.num_octaves, 2 * cfg.num_octaves, 0))
+    if on_card:
+        _require(clamped == 1, "cli: the deepest octave did not take the clamped mode")
+    _, cuda_records = cli_pair(path, "cuda", desc + ["--blur", "cuda"],
+                               (0, 2 * cfg.num_octaves, n_blurs))
+    # --blur matmul: full float32 products run, TF32 is refused.
+    zero()
+    rc, _ = _quiet(cli.main, [path, "-o", os.path.join(work, "matmul"), "--blur", "matmul",
+                              "--no-galleries", *card])
+    matmul_launches = counts()
+    # Against --blur cuda, the other blur-by-blur path (the fused path caps
+    # candidates by octave, these two by trio).
+    matched, p99 = record_agreement(cli_records(os.path.join(work, "matmul"))[0], cuda_records)
+    image = torch.from_numpy(frame)[None].to(dev).float() / torch.full((), 255.0, device=dev)
+    space = port.build_scale_space(image, cfg, "matmul", device=dev)
+    plain = port.build_scale_space(image, cfg, "separable", device=dev)
+    matmul_err = max((a - b).abs().max().item() for a, b in zip(space, plain))
+    del space, plain
+    refused = True
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            cli.main([path, "-o", os.path.join(work, "tf32"), "--blur", "matmul", "--no-galleries"])
+            refused = False
+        except RuntimeError as err:
+            refused = "allow_tf32" in str(err)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    _say(
+        f"cli --blur matmul: exit code {rc}, launches K1/K2/K3 {matmul_launches}, against the "
+        f"--blur cuda run: slot agreement {matched:.6f}, p99 {p99:.3g} px (readings); its scale space "
+        f"against the tap loop's on the card: max abs diff {matmul_err:.3g} (bar {MATMUL_ATOL}); "
+        f"with TF32 on: refused {refused}"
+    )
+    _require(rc == 0 and matmul_launches == (0, 0, 0), "cli --blur matmul did not run plainly")
+    _require(matmul_err <= MATMUL_ATOL, "blur_matmul differs from the tap loop")
+    _require(refused, "cli --blur matmul ran with TF32 on")
+
+    # The rehearsal's sequences: the dolly of slam_bench.py's recipe, written
+    # by the port's writers.
+    t0 = time.perf_counter()
+    seqs = {fmt: write_rehearsal_sequence(fmt, work, frames, wh)
+            for fmt, wh in (("tum", size), ("kitti", kitti_size))}
+    _say(f"rehearsal: wrote {frames} x {size[0]}x{size[1]} TUM and {frames} x "
+         f"{kitti_size[0]}x{kitti_size[1]} KITTI frames in {time.perf_counter() - t0:.2f} s")
+
+    # (b) KITTI dims through the CLI, as they are and padded; the octave
+    # kernel against its plain version on each frame's octaves.
+    kitti_frame = seqs["kitti"][1][0]
+    octave_err = 0.0
+    for name, pixels in (("kitti", kitti_frame), ("kitti_padded", pad_to_tpu_friendly(kitti_frame))):
+        path = os.path.join(work, f"{name}.png")
+        write_png(path, pixels)
+        cli_pair(path, name, desc, (cfg.num_octaves, 2 * cfg.num_octaves, 0))
+        base = torch.from_numpy(pixels)[None].to(dev).float() / torch.full((), 255.0, device=dev)
+        worst, same = 0.0, 1.0
+        for octave in range(cfg.num_octaves):
+            sigmas = _octave_sigmas(cfg, octave)
+            args = (base, sigmas, cfg.scales_per_octave, cfg.contrast_prefilter_threshold)
+            got = fused_octave(*args, upsample2x=octave == 0, emit_scales=True)
+            want = fused_octave_reference(*args, upsample2x=octave == 0, emit_scales=True)
+            worst = max([worst] + [(g - w).abs().max().item() for i, (g, w) in
+                                   enumerate(zip(got, want)) if i != 2])
+            same = min(same, (got[2] == want[2]).float().mean().item())
+            base = downsample2x_nn(want[1]).contiguous()
+        _say(f"cli {name}: octave kernel vs plain on its {cfg.num_octaves} octaves "
+             f"{tuple(pixels.shape)}: DoG/seed/stack max abs diff {worst:.3g}, masks equal on "
+             f"{100 * same:.4f} % of pixels")
+        _require(worst <= MAX_ABS_ERR and same >= MASK_AGREEMENT,
+                 f"cli {name}: the octave kernel differs from its plain version")
+        octave_err = max(octave_err, worst)
+
+    # (c) the on-disk rehearsal: evaluate.main on each sequence, its frames
+    # decoded natively, its trajectory the same bits as run_slam_from_images
+    # on the same frames.
+    calls = []
+    run_slam_from_images = slam_module.run_slam_from_images
+
+    def spy(images, *args, **kwargs):
+        result = run_slam_from_images(images, *args, **kwargs)
+        calls.append((images, args, kwargs, result))
+        return result
+
+    for fmt, (argv, pixels, paths) in seqs.items():
+        traj = os.path.join(work, f"{fmt}_traj.txt")
+        calls.clear()
+        native_io.load_batch_gray.native_frames = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        zero()
+        slam_module.run_slam_from_images = spy
+        try:
+            rc, text = _quiet(evaluate.main, argv + ["--out-traj", traj, *card])
+        finally:
+            slam_module.run_slam_from_images = run_slam_from_images
+        launches, native = counts(), native_io.load_batch_gray.native_frames
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        _require(rc == 0 and len(calls) == 1, f"evaluate {fmt}: exit code {rc}")
+        images, args, kwargs, result = calls[0]
+        metrics = json.loads(text.strip().splitlines()[-1])
+        loaded = [ln for ln in text.splitlines() if "loaded in" in ln][0]
+        decoded = native_io.load_batch_gray(paths, fallback=False)
+        exact = (pixels.astype(np.float64) / 255.0).astype(np.float32)
+        decoded_ok = np.array_equal(decoded, exact)
+        padded = pad_to_tpu_friendly(decoded)
+        same_frames = np.array_equal(images, padded)
+        again = run_slam_from_images(padded, *args, **kwargs)
+        same_bits = (np.array_equal(again.rotations, result.rotations)
+                     and np.array_equal(again.translations, result.translations))
+        rows = read_tum_trajectory(traj)[0].shape[0]
+        chunks = -(-frames // SLAM_CHUNK)
+        octaves = args[1].num_octaves
+        expected = (octaves * chunks, 2 * chunks, 0)
+        _say(
+            f"evaluate {fmt}: {loaded.strip()}; natively decoded {native} "
+            f"of {frames} frames, equal to the written pixels / 255 {decoded_ok}; frames handed to "
+            f"SLAM {tuple(images.shape)} equal to the decoded and padded frames {same_frames}; "
+            f"trajectory bit-equal to run_slam_from_images in this process {same_bits}; "
+            f"{rows} rows read back; launches K1/K2/K3 {launches} (expected {expected})"
+        )
+        _say(
+            f"timing evaluate {fmt}: SLAM {metrics['slam_frames_per_s']} frames/s "
+            f"({metrics['landmarks']} landmarks), peak device memory {peak_gib:.2f} GiB; readings: "
+            f"ATE {metrics.get('ate_rmse')}, RPE {metrics.get('rpe_trans_rmse')}, RRE "
+            f"{metrics.get('rpe_rot_rmse_deg')} deg [{smi}]"
+        )
+        _require(metrics["frames"] == frames and rows == frames,
+                 f"evaluate {fmt}: {metrics['frames']} frames, {rows} trajectory rows")
+        _require(native == frames and decoded_ok and same_frames,
+                 f"evaluate {fmt}: the frames were not decoded natively and exactly")
+        _require(same_bits, f"evaluate {fmt}: the trajectory differs from run_slam_from_images")
+        _require(np.isfinite(result.rotations).all() and np.isfinite(result.translations).all(),
+                 f"evaluate {fmt}: the trajectory is not finite")
+        if on_card:
+            _require(launches == expected, f"evaluate {fmt}: launches {launches}")
+
+        # Both kernels against their plain versions on the first chunk of
+        # the frames evaluate handed to SLAM, with its SiftConfig.
+        sift_cfg = args[1]
+        first = torch.from_numpy(np.ascontiguousarray(images[:SLAM_CHUNK])).to(dev)
+        octave_err, masks_same, sample_err, stage_shapes, slots_same, described_err = (
+            _kernels_vs_plain(torch, _as_unit_float(first), sift_cfg,
+                              port.detect_and_describe_batched(first, sift_cfg, device=dev))
+        )
+        _say(
+            f"evaluate {fmt}, kernels vs plain on the first chunk {tuple(first.shape)} "
+            f"({sift_cfg.num_octaves} octaves, capacity {sift_cfg.max_keypoints_per_trio}): DoG "
+            f"and Gaussian stacks max abs diff {octave_err:.3g}, masks equal on "
+            f"{100 * masks_same:.4f} % of pixels, window samples {stage_shapes} max abs diff "
+            f"{sample_err:.3g}; the chunk through the plain versions: slot agreement "
+            f"{slots_same:.6f}, descriptors max abs diff {described_err:.3g}"
+        )
+        _require(max(octave_err, sample_err, described_err) <= MAX_ABS_ERR,
+                 f"evaluate {fmt}: a kernel differs from its plain version on the first chunk")
+        _require(masks_same >= MASK_AGREEMENT and slots_same >= SLOT_AGREEMENT,
+                 f"evaluate {fmt}: masks or slots differ from the plain path's on the first chunk")
+        del first
+
+    # (c) continued: evaluate card against --device cpu on a cut of the TUM
+    # sequence, with the association SLAM needs to solve it (the defaults
+    # lose it in both packages, PERF.md §6; the same flags as phase 15 (c)
+    # and its re-association window).
+    solved = ["--max-frames", str(solved_frames), "--match-gate", f"{SLAM_MATCH_GATE_PX:g}",
+              "--reassoc", "2", "--max-tracks", str(SLAM_MAX_TRACKS)]
+    zero()
+    rc, text = _quiet(evaluate.main, seqs["tum"][0] + solved + card)
+    launches = counts()
+    _require(rc == 0, f"evaluate {' '.join(solved)}: exit code {rc}")
+    metrics = json.loads(text.strip().splitlines()[-1])
+    rc, text = _quiet(evaluate.main, seqs["tum"][0] + solved + ["--device", "cpu"])
+    _require(rc == 0, f"evaluate {' '.join(solved)} --device cpu: exit code {rc}")
+    cpu_metrics = json.loads(text.strip().splitlines()[-1])
+    chunks = -(-solved_frames // SLAM_CHUNK)
+    expected = (4 * chunks, 2 * chunks, 0)  # evaluate's 4 octaves
+    _say(
+        f"evaluate tum {' '.join(solved)}: launches K1/K2/K3 {launches} (expected {expected}); "
+        f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
+        f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg, SLAM "
+        f"{metrics['slam_frames_per_s']} frames/s; with --device cpu: {cpu_metrics['landmarks']} "
+        f"landmarks, ATE {cpu_metrics['ate_rmse']} (bars: < {SLAM_REF_ATE} and within "
+        f"{SLAM_ATE_GAP}) [{smi}]"
+    )
+    _require(metrics["frames"] == cpu_metrics["frames"] == solved_frames,
+             "evaluate, solved variant: frame counts differ")
+    if on_card:
+        _require(launches == expected, f"evaluate, solved variant: launches {launches}")
+    _require(max(metrics["ate_rmse"], cpu_metrics["ate_rmse"]) < SLAM_REF_ATE,
+             "evaluate, solved variant: the sequence is not solved")
+    _require(abs(metrics["ate_rmse"] - cpu_metrics["ate_rmse"]) < SLAM_ATE_GAP,
+             "evaluate, solved variant: the card's ATE differs from the CPU's")
+    shutil.rmtree(work, ignore_errors=True)
+    return tuple(total), octave_err
 
 
 def main() -> int:
@@ -1665,6 +2064,8 @@ def main() -> int:
         torch, port, smi, device
     )
     max_err, sample_err = max(max_err, slam_octave_err), max(sample_err, slam_sample_err)
+    surface_launches, surface_octave_err = _phase_surfaces(torch, port, smi, device)
+    max_err = max(max_err, surface_octave_err)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -1676,7 +2077,7 @@ def main() -> int:
                 "source": CSRC + "octave.cu",
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
-                + stream_launches[0],
+                + stream_launches[0] + surface_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -1690,7 +2091,7 @@ def main() -> int:
                 "source": CSRC + "describe.cu",
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
-                + stream_launches[1],
+                + stream_launches[1] + surface_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -1703,7 +2104,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
-                "launches": blur_launches + slam_launches[2] + stream_launches[2],
+                "launches": blur_launches + slam_launches[2] + stream_launches[2]
+                + surface_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

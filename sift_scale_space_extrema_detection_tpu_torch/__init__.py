@@ -11,6 +11,14 @@ RANSAC two-view pose, and the ``sfm`` subpackage (PnP, pose graph, Schur
 bundle adjustment, trajectory evaluation); and SLAM on top: the
 incremental back end with checkpoint/resume (``models/slam.py``), visual
 tracks from images, and the streaming session (``models/streaming.py``).
+The user surfaces sit on top: the CLI (``python -m
+sift_scale_space_extrema_detection_tpu_torch.cli IMAGE``: keypoints,
+descriptors, galleries) and the dataset evaluator (``python -m
+sift_scale_space_extrema_detection_tpu_torch.evaluate DIR``: a TUM-RGBD or
+KITTI sequence → trajectory → ATE/RPE), over the image I/O
+(``core/image.py``, the native loader ``core/native_io.py``), the dataset
+layer (``data/``: TUM and KITTI readers and writers, pose files) and
+``utils/visualize.py``.
 The package imports torch and numpy only; the JAX package stays the
 reference it is tested against.
 """
@@ -49,7 +57,7 @@ from .models.slam import (
     run_slam_from_images,
 )
 from .models.streaming import SlamSession
-from . import sfm
+from . import data, sfm
 from .ops.descriptor import DescribedKeypoints, concat_described
 from .ops.matching import Matches, descriptor_distances, match_descriptors
 from .ops.ransac import (
@@ -76,6 +84,7 @@ __all__ = [
     "recover_pose",
     "refine_relative_pose",
     "sampson_error",
+    "data",
     "sfm",
     "SlamConfig",
     "SlamResult",

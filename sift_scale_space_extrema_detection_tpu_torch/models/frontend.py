@@ -36,7 +36,7 @@ from ..ops.descriptor import (
 )
 from ..ops.dog import difference_of_gaussians
 from ..ops.extrema import compact_extrema, find_extrema, select_refine_candidates
-from ..ops.gaussian import blur_exact, blur_separable
+from ..ops.gaussian import blur_exact, blur_matmul, blur_separable
 from ..ops.kernels.blur import blur_fused
 from ..ops.kernels.octave import fused_octave
 from ..ops.refine import refine_keypoints
@@ -45,11 +45,13 @@ from ..ops.resize import downsample2x_nn, upsample2x_nn
 # ``"cuda"``, the default, is the stand-alone blur kernel, the counterpart of
 # the JAX package's ``"pallas"`` strategy (for a CPU tensor it runs the tap
 # loop); ``"separable"`` is the plain tap loop on any device, the kernel's
-# reference; ``"exact"`` is the full 2-D blur in the reference's
-# accumulation order, for float64 images: the oracle leg.
+# reference; ``"matmul"`` is the banded matrix product (TF32 refused);
+# ``"exact"`` is the full 2-D blur in the reference's accumulation order,
+# for float64 images: the oracle leg.
 BLUR_STRATEGIES = {
     "cuda": blur_fused,
     "separable": blur_separable,
+    "matmul": blur_matmul,
     "exact": blur_exact,
 }
 

@@ -1351,6 +1351,7 @@ def run_slam_from_images(
     loop_topk: int = 8,
     device: Device = None,
     dtype: torch.dtype = torch.float32,
+    max_tracks: int = 4096,
     **slam_kwargs,
 ) -> SlamResult:
     """Full visual SLAM: pixels in → trajectory + map out.
@@ -1360,10 +1361,12 @@ def run_slam_from_images(
     incremental geometric back end (:func:`run_slam`). ``slam_kwargs``
     forward to :func:`run_slam` (checkpointing etc.). ``device``: see
     ``core/device.py``; ``dtype``: the back end's (see the module).
+    ``max_tracks`` is the tracking's room (the JAX package fixes it at its
+    default, 4096); once it is full, no new track opens.
     """
     target = _target(device)
     pixels, visible, _ = build_tracks_from_images(
-        images, sift_cfg, k_mat=k_mat, match_ratio=match_ratio,
+        images, sift_cfg, k_mat=k_mat, match_ratio=match_ratio, max_tracks=max_tracks,
         reassoc_window=reassoc_window, frontend_chunk=frontend_chunk,
         profile=profile, max_match_px=max_match_px, loop_stride=loop_stride,
         loop_query_stride=loop_query_stride, loop_topk=loop_topk, device=target,

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
     _as_unit_float,
@@ -533,3 +534,83 @@ def test_slam_entry_points_raise_without_a_card(device, monkeypatch):
         port.run_slam(seq.pixels, seq.visible, seq.k_mat)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         port.SlamSession(seq.k_mat)
+
+
+# --- the user surfaces: cli.py and evaluate.py on the card ---------------------------
+
+
+@pytest.mark.parametrize("blur, k1, k3", [("fused", 3, 0), ("cuda", 0, 3 * 6 - 2)])
+def test_cli_on_card_matches_cpu(device, tmp_path, blur, k1, k3):
+    from sift_scale_space_extrema_detection_tpu_torch import cli
+    from sift_scale_space_extrema_detection_tpu_torch.core.image import write_png
+
+    path = str(tmp_path / "in.png")
+    write_png(path, np.round(_blob_images(21, 1, 96, 128)[0] * 255.0).astype(np.uint8))
+    argv = [path, "--octaves", "3", "--descriptors", "--blur", blur]
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    assert cli.main(argv + ["-o", str(tmp_path / "card")]) == 0
+    assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (k1, 6, k3)
+    assert cli.main(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu", "--no-galleries"]) == 0
+    got, got_desc = chip_smoke.cli_records(str(tmp_path / "card"))
+    want, want_desc = chip_smoke.cli_records(str(tmp_path / "cpu"))
+    matched, p99 = chip_smoke.record_agreement(got, want)
+    assert len(want) > 10 and matched >= 0.999 and p99 <= 0.1, (matched, p99)
+    share, min_cos = chip_smoke.descriptor_cosines(got_desc, want_desc)
+    assert share >= 0.999 and min_cos >= 0.999, (share, min_cos)
+
+
+def test_blur_matmul_on_card_refuses_tf32_and_matches_the_tap_loop(device, monkeypatch):
+    from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import blur_matmul
+
+    image = torch.from_numpy(_blob_images(22, 2, 48, 64)).to(device)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        blur_matmul(image, 1.6)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for sigma in (0.9, 2.5, 7.0):
+        got = blur_matmul(image, sigma)
+        torch.testing.assert_close(got, blur_separable(image, sigma), rtol=0, atol=1e-6)
+
+
+def test_evaluate_on_card_agrees_with_cpu(device, tmp_path, capsys):
+    import json
+
+    from sift_scale_space_extrema_detection_tpu_torch import evaluate
+    from sift_scale_space_extrema_detection_tpu_torch.data import (
+        read_tum_trajectory,
+        write_tum_sequence,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.utils.synthetic import (
+        render_blob_image,
+        textured_blob_field,
+    )
+
+    # The scene of tests/test_datasets.py::test_evaluate_cli_end_to_end.
+    rng = np.random.default_rng(4)
+    k_mat = np.array([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    rpts, amps, ss = textured_blob_field(rng, rng.uniform([-3.5, -1.8, 4.0], [3.5, 1.8, 9.0],
+                                                          size=(110, 3)))
+    rots = port.sfm.geometry.so3_exp(
+        torch.tensor([[0.004 * f, -0.01 * f, 0.0] for f in range(6)], dtype=torch.float64)
+    ).numpy()
+    ts = -np.einsum("fij,fj->fi", rots, [[0.3 * f, 0.02 * f, 0.0] for f in range(6)])
+    frames = np.stack([
+        render_blob_image(rpts, r, t, k_mat, (320, 240), amplitudes=amps,
+                          sigma_scales=ss, rng=np.random.default_rng(200 + f))
+        for f, (r, t) in enumerate(zip(rots, ts))
+    ])
+    root = str(tmp_path / "rgbd_dataset_freiburg_synth")
+    write_tum_sequence(root, frames, np.arange(6) / 30.0, rots, ts)
+    argv = [root, "--octaves", "3", "--capacity", "256"]
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    metrics = []
+    for device_flag in ("cuda", "cpu"):
+        traj = str(tmp_path / f"{device_flag}.txt")
+        assert evaluate.main(argv + ["--device", device_flag, "--out-traj", traj]) == 0
+        metrics.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+        assert read_tum_trajectory(traj)[0].shape == (6,)
+        if device_flag == "cuda":
+            assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (3, 2, 0)
+    card, cpu = metrics
+    assert card["frames"] == cpu["frames"] == 6
+    assert card["ate_rmse"] < 0.25 and abs(card["ate_rmse"] - cpu["ate_rmse"]) < 0.02, metrics

@@ -202,7 +202,7 @@ def test_window_sample_pair_checks_its_input(args, error):
 def test_unknown_blur_strategy_raises():
     with pytest.raises(KeyError):
         port.build_scale_space(
-            torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "matmul", device="cpu"
+            torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "pallas", device="cpu"
         )
 
 
@@ -375,3 +375,57 @@ def test_slam_entry_point_runs_on_the_card_unless_asked_for_the_cpu(name, monkey
     with pytest.raises(RuntimeError, match='device="cpu"'):
         SLAM_ENTRY_POINTS[name]()
     SLAM_ENTRY_POINTS[name](device="cpu")
+
+
+# --- the user surfaces: cli.py and evaluate.py -------------------------------------
+
+
+def _surface_inputs(root):
+    """A 24x32 PNG and a three-frame TUM sequence of it under ``root``:
+    ``(cli argv, evaluate argv)``, each to be completed by a device flag."""
+    from sift_scale_space_extrema_detection_tpu_torch.core.image import write_png
+    from sift_scale_space_extrema_detection_tpu_torch.data import write_tum_sequence
+
+    image = str(root / "in.png")
+    write_png(image, _IMGS[0])
+    seq = str(root / "seq")
+    write_tum_sequence(seq, _IMGS / 255.0, np.arange(3) / 30.0, np.eye(3)[None].repeat(3, 0),
+                       np.array([[0.0, 0, 0], [0.2, 0, 0], [0.4, 0, 0]]))
+    return ([image, "-o", str(root / "out"), "--octaves", "2", "--no-galleries"],
+            [seq, "--octaves", "2"])
+
+
+@pytest.mark.parametrize("surface", ["cli", "evaluate"])
+def test_surface_runs_on_the_card_unless_asked_for_the_cpu(surface, monkeypatch, tmp_path):
+    from sift_scale_space_extrema_detection_tpu_torch import cli, evaluate
+
+    main = {"cli": cli.main, "evaluate": evaluate.main}[surface]
+    argv = _surface_inputs(tmp_path)[surface == "evaluate"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(SystemExit, match="no CUDA device.*--device cpu"):
+            main(argv + device)
+    assert main(argv + ["--device", "cpu"]) == 0
+
+
+def test_surfaces_run_without_importing_jax(tmp_path):
+    cli_argv, eval_argv = _surface_inputs(tmp_path)
+    code = textwrap.dedent(
+        f"""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        from sift_scale_space_extrema_detection_tpu_torch import cli, evaluate
+        assert cli.main({cli_argv!r} + ["--device", "cpu", "--descriptors"]) == 0
+        assert evaluate.main({eval_argv!r} + ["--device", "cpu"]) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL"))
+        assert not leaked, leaked
+        assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ok"
