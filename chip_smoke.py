@@ -217,6 +217,15 @@ SLAM_VISIBLE_AGREEMENT = 0.99
 SLAM_ATE_GAP = 0.02  # the reference's streaming bound, tests/test_visual_slam.py:234
 SLAM_MATCH_GATE_PX = 30.0  # ~1.7x the bench sequence's median flow between frames (17.4 px)
 SLAM_MAX_TRACKS = 16_384  # the default 4,096 run out near frame 19 of 40
+ORBIT_FRAMES = 50  # BASELINE config[3], tests/test_slam.py:46-60
+ORBIT_LANDMARKS = 400
+ORBIT_MIN_LANDMARKS = 200
+ORBIT_ATE = 0.08  # 1 % of the orbit's radius
+SHARD_WORLD = 2  # phase 17 (b): two gloo ranks on the one card
+SHARD_TIMEOUT_S = 120  # every collective's limit
+SHARD_ATOL = 1e-4  # tests/test_multihost.py:204-219
+SHARD_BA = (50, 4096, 512)  # phase 14's dense problem: cameras, landmarks, observations a camera
+BA_ITERATIONS = 10
 SURFACE_FRAMES = 200  # each on-disk rehearsal sequence
 SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card and on the CPU
 KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
@@ -432,15 +441,17 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _host_ms(torch, fn, reps: int) -> float:
+def _host_ms(torch, fn, reps: int, dev=None) -> float:
     """Mean host-clock time of ``fn()`` over ``reps`` calls, synchronised
-    before and after, after one warm-up call."""
+    before and after (the card, unless ``dev`` is another device), after one
+    warm-up call."""
+    dev = torch.device("cuda") if dev is None else dev
     fn()
-    torch.cuda.synchronize()
+    _sync(torch, dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
+    _sync(torch, dev)
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
@@ -857,10 +868,45 @@ def slam_bench_recipe(port, frames: int = SLAM_FRAMES, width: int = WIDTH, heigh
     )
 
 
+def _count_bas(slam_module):
+    """Count the BAs of ``models/slam.py``: returns ``(read, restore)``;
+    ``read()`` gives ``(single-device, sharded)`` calls since this call,
+    ``restore()`` takes the counting wrapper off ``slam_module.bundle_adjust``."""
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import distributed_bundle_adjust
+
+    inner, calls, base = slam_module.bundle_adjust, [0], distributed_bundle_adjust.calls
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+
+    slam_module.bundle_adjust = counted
+
+    def read():
+        return calls[0], distributed_bundle_adjust.calls - base
+
+    def restore():
+        slam_module.bundle_adjust = inner
+
+    return read, restore
+
+
+def _orbit_sequence(synthetic, frames=ORBIT_FRAMES):
+    """BASELINE config[3]: ``orbit_sequence(default_rng(2), 50, 400,
+    noise_px=0.4, outlier_frac=0.02)`` (tests/test_slam.py:46-60)."""
+    return synthetic.orbit_sequence(np.random.default_rng(2), num_frames=frames,
+                                    num_landmarks=ORBIT_LANDMARKS, noise_px=0.4,
+                                    outlier_frac=0.02)
+
+
 def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=HEIGHT):
     """Phase 15: images → trajectory, batch and streaming, on ``dev``.
-    Returns ``(batch launches, streaming launches, octave_err, sample_err)``;
-    the launches are (K1, K2, K3) counts."""
+    Returns ``(batch launches, streaming launches, octave_err, sample_err,
+    refs)``; the launches are (K1, K2, K3) counts, ``refs`` the readings
+    phase 17 holds its sharded runs against: the gated sequence's ATE
+    (``solved_ate``) and config[3]'s ATE and BA count (``orbit_ate``,
+    ``orbit_bas``)."""
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
     from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
     from sift_scale_space_extrema_detection_tpu_torch.models.slam import (
         build_tracks_from_described,
@@ -1078,7 +1124,472 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
         f"{report['total_s'] * 1e3:.1f} ms in all, {report['device_round_trips']} round trips): "
         f"{stages} [{smi}]"
     )
-    return launches, stream_launches, octave_err, sample_err
+
+    # (g) BASELINE config[3], tracks only: the 50-keyframe orbit through
+    # run_slam at the reference's bars.
+    seq = _orbit_sequence(synthetic)
+    orbit_cfg = port.SlamConfig()
+    port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, device=dev)  # warm-up
+    read, restore = _count_bas(slam_module)
+    try:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, device=dev)
+        _sync(torch, dev)
+        orbit_seconds = time.perf_counter() - t0
+    finally:
+        orbit_bas = read()[0]
+        restore()
+    orbit_ate = port.evaluate_ate(orbit, seq.rotations, seq.translations, device=dev)
+    orbit_landmarks = int(orbit.landmark_valid.sum())
+    _say(
+        f"SLAM, BASELINE config[3]: orbit_sequence(default_rng(2), {ORBIT_FRAMES}, "
+        f"{ORBIT_LANDMARKS}, noise 0.4 px, 2 % outliers) through run_slam, SlamConfig(): valid "
+        f"landmarks {orbit_landmarks} (bar > {ORBIT_MIN_LANDMARKS}), ATE {orbit_ate:.4f} (bar < "
+        f"{ORBIT_ATE}), {orbit_bas} BAs, {1e3 * orbit_seconds:.1f} ms, "
+        f"{ORBIT_FRAMES / orbit_seconds:.2f} frames/s [{smi}]"
+    )
+    _require(orbit_landmarks > ORBIT_MIN_LANDMARKS, "config[3]: too few landmarks")
+    _require(orbit_ate < ORBIT_ATE, "config[3]: ATE above the reference's bar")
+    refs = dict(solved_ate=ate_solved, orbit_ate=orbit_ate, orbit_bas=orbit_bas)
+    return launches, stream_launches, octave_err, sample_err, refs
+
+
+def _described_fields(described) -> dict:
+    import dataclasses
+
+    return {f.name: getattr(described, f.name) for f in dataclasses.fields(described)}
+
+
+def _same_solve(torch, a, b, cost_a, cost_b) -> bool:
+    """Whether two BA results (states and costs) are the same bits."""
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("rotations", "translations", "points")) and torch.equal(cost_a, cost_b)
+
+
+def _sharding_rank(rank, world, workdir, spec):
+    """Phase 17 (b): one rank of the gloo group (spawned), on ``spec["device"]``
+    ("cuda": every rank on the card the process is given). The data-parallel
+    frontend on the main-path batch, K1 and K2 against their plain versions
+    on this rank's share; with ``spec["full"]`` also the sharded BA on phase
+    14's dense problem and config[3]'s orbit through ``run_slam(mesh=…)``.
+    Writes ``rank<r>.json`` (readings, launches, bars' inputs) and, on rank
+    0, the gathered frontend result ``frontend.npz``. The kernels are loaded
+    from the library phase 2 built: a rebuild fails the rank."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import sift_scale_space_extrema_detection_tpu_torch as port
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
+        detect_and_describe_data_parallel,
+        distributed_bundle_adjust,
+        initialize_multihost,
+        make_mesh,
+        put_global,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState, Observations
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    torch.set_num_threads(2)
+    on_card = spec["device"] == "cuda"
+    built = set(os.listdir(_build.BUILD_DIR)) if on_card else set()
+    initialize_multihost(f"file://{os.path.join(workdir, 'store2')}", world, rank,
+                         backend="gloo", timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = make_mesh(world, device_type=spec["device"])
+        dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rec = dict(rank=rank, device=str(dev))
+        cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+        images = _make_batch(spec["batch"], spec["height"], spec["width"])
+        detect_and_describe_data_parallel(images, cfg, mesh)  # warm-up
+        _sync(torch, dev)
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+        t0 = time.perf_counter()
+        got = detect_and_describe_data_parallel(images, cfg, mesh)
+        _sync(torch, dev)
+        rec["frontend_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["launches"] = [fused_octave.launches, window_sample_pair.launches, blur_fused.launches]
+        share = spec["batch"] // world
+        mine = _described_fields(got)
+        local = type(got)(**{k: v[rank * share:(rank + 1) * share] for k, v in mine.items()})
+        errs = _kernels_vs_plain(torch, _as_unit_float(put_global(images, mesh)), cfg, local)
+        rec.update(zip(("octave_err", "masks_same", "sample_err", "stage_shapes", "slots_same",
+                        "described_err"), errs))
+        if rank == 0:
+            np.savez(os.path.join(workdir, "frontend.npz"),
+                     **{k: v.cpu().numpy() for k, v in mine.items()})
+        del got, local, mine
+        if spec["full"]:
+            c, l, opc = spec["ba"]
+            p = _ba_problem(np.random.default_rng(0), c, l, opc)
+            state = BAState(*(torch.from_numpy(p[k]).to(dev)
+                              for k in ("rotations", "translations", "points", "k_mat")))
+            obs = Observations(torch.from_numpy(p["camera"]).to(dev),
+                               torch.from_numpy(p["landmark"]).to(dev),
+                               torch.from_numpy(p["uv"]).to(dev),
+                               torch.ones(c * opc, dtype=torch.bool, device=dev))
+            out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            again, cost_again = distributed_bundle_adjust(state, obs, mesh,
+                                                          num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            rec["ba_ms_per_iteration"] = 1e3 * (time.perf_counter() - t0) / BA_ITERATIONS
+            rec["ba_cost"] = cost.item()
+            rec["ba_rms"] = float(torch.sqrt(2.0 * cost / (c * opc)))
+            rec["ba_rerun_equal"] = _same_solve(torch, out, again, cost, cost_again)
+            del state, obs, out, again
+
+            seq = _orbit_sequence(synthetic, spec["orbit_frames"])
+            orbit_cfg = port.SlamConfig(dist_ba_min_landmarks=0)
+            read, restore = _count_bas(slam_module)
+            try:
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, mesh=mesh,
+                                      device=dev)
+                _sync(torch, dev)
+                rec["orbit_seconds"] = time.perf_counter() - t0
+            finally:
+                rec["orbit_bas"] = list(read())
+                restore()
+            rec["orbit_ate"] = port.evaluate_ate(orbit, seq.rotations, seq.translations,
+                                                 device=dev)
+            rec["orbit_landmarks"] = int(orbit.landmark_valid.sum())
+            every = [None] * world
+            dist.all_gather_object(every, (orbit.rotations.tobytes(), orbit.translations.tobytes()))
+            rec["orbit_same_on_every_rank"] = all(t == every[0] for t in every)
+        if on_card:
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["rebuilt"] = sorted(set(os.listdir(_build.BUILD_DIR)) - built)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGHT),
+                    ba_sizes=SHARD_BA, slam_frames=SLAM_FRAMES, orbit_frames=ORBIT_FRAMES,
+                    world=SHARD_WORLD):
+    """Phase 17: sharding over ``torch.distributed``. (a) World 1 in this
+    process (NCCL on the card, over a file store): the data-parallel
+    frontend, keyframe-sharded matching, the sharded BA, composed SLAM and
+    the streaming session with a mesh. (b) World ``world`` on gloo, every
+    rank spawned on the same ``dev``: the frontend, the BA and config[3]'s
+    orbit (:func:`_sharding_rank`). ``refs``: phase 15's readings. Returns
+    ``(launches, octave_err, sample_err)``: the (K1, K2, K3) launches of the
+    sharded main paths ((a) and every rank of (b)) and the kernels' largest
+    differences from their plain versions on them."""
+    import dataclasses
+    import datetime
+    import os
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
+        detect_and_describe_data_parallel,
+        distributed_bundle_adjust,
+        initialize_multihost,
+        make_mesh,
+        match_against_keyframes_sharded,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
+        BAState,
+        Observations,
+        bundle_adjust,
+    )
+
+    on_card = dev.type == "cuda"
+    total = [0, 0, 0]
+
+    def zero():
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+
+    def counts():
+        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches)
+        for i, n in enumerate(got):
+            total[i] += n
+        return got
+
+    width, height = size
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_sharding")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    images_cpu = torch.from_numpy(_make_batch(batch, height, width))
+    initialize_multihost(f"file://{os.path.join(work, 'store1')}", 1, 0,
+                         backend="nccl" if on_card else "gloo",
+                         timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device_type=dev.type)
+
+        # (a) the data-parallel frontend on the main-path batch.
+        detect_and_describe_data_parallel(images_cpu, cfg, mesh)  # warm-up
+        _sync(torch, dev)
+        zero()
+        got = detect_and_describe_data_parallel(images_cpu, cfg, mesh)
+        _sync(torch, dev)
+        launches = counts()
+        want = port.detect_and_describe_batched(images_cpu, cfg, device=dev)
+        same = all(torch.equal(a, want_field) for a, want_field in
+                   zip(_described_fields(got).values(), _described_fields(want).values()))
+        dp_ms = _host_ms(torch, lambda: detect_and_describe_data_parallel(images_cpu, cfg, mesh),
+                         3, dev)
+        plain_path_ms = _host_ms(torch, lambda: port.detect_and_describe_batched(
+            images_cpu, cfg, device=dev), 3, dev)
+        octave_err, masks_same, sample_err, stage_shapes, slots_same, described_err = (
+            _kernels_vs_plain(torch, _as_unit_float(images_cpu.to(dev)), cfg, got)
+        )
+        _say(
+            f"sharding (a), world 1 ({dist.get_backend()}): detect_and_describe_data_parallel "
+            f"{batch}x{height}x{width}: launches K1/K2/K3 {launches} (expected "
+            f"{(cfg.num_octaves, 2, 0)}), every field equal to detect_and_describe_batched's "
+            f"{same}; K1/K2 vs plain on its inputs: DoG and stacks max abs diff {octave_err:.3g}, "
+            f"masks equal on {100 * masks_same:.4f} % of pixels, window samples {stage_shapes} "
+            f"max abs diff {sample_err:.3g}, slot agreement {slots_same:.6f}, descriptors max abs "
+            f"diff {described_err:.3g}; {dp_ms:.2f} ms a batch (detect_and_describe_batched "
+            f"{plain_path_ms:.2f} ms, a reading) [{smi}]"
+        )
+        if on_card:
+            _require(launches == (cfg.num_octaves, 2, 0),
+                     f"the data-parallel frontend launched K1/K2/K3 {launches} times")
+        _require(same, "the data-parallel frontend differs from detect_and_describe_batched")
+        _require(max(octave_err, sample_err, described_err) <= MAX_ABS_ERR,
+                 "sharding: a kernel differs from its plain version")
+        _require(masks_same >= MASK_AGREEMENT and slots_same >= SLOT_AGREEMENT,
+                 "sharding: masks or slots differ from the plain path's")
+
+        # Keyframe-sharded matching: frame 0 against frames 1-8.
+        n_kf = min(8, batch - 1)
+        q, qv = got.descriptor[0], got.valid[0]
+        kf, kfv = got.descriptor[1:1 + n_kf], got.valid[1:1 + n_kf]
+        idx, _, ok = match_against_keyframes_sharded(q, qv, kf, kfv, mesh)
+        match_same = True
+        for k in range(n_kf):
+            ref = port.match_descriptors(q, qv, kf[k], kfv[k], device=dev)
+            match_same &= bool(torch.equal(ok[k], ref.valid)
+                               and torch.equal(idx[k][ref.valid], ref.index[ref.valid]))
+        _say(
+            f"sharding (a): match_against_keyframes_sharded, frame 0's {q.shape[0]} slots against "
+            f"{n_kf} keyframes: {int(ok.sum())} matches, valid flags and indices equal to "
+            f"match_descriptors per keyframe {match_same}"
+        )
+        _require(match_same, "sharded keyframe matching differs from match_descriptors")
+        del got, q, qv, kf, kfv, idx, ok
+
+        # The sharded BA on phase 14's dense problem.
+        c, l, opc = ba_sizes
+        p = {k: torch.from_numpy(v).to(dev)
+             for k, v in _ba_problem(np.random.default_rng(0), c, l, opc).items()}
+        state = BAState(p["rotations"], p["translations"], p["points"], p["k_mat"])
+        obs = Observations(p["camera"], p["landmark"], p["uv"],
+                           torch.ones(c * opc, dtype=torch.bool, device=dev))
+        _, single_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS, device=dev)
+        scatter, scatter_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS,
+                                              assembly="scatter", device=dev)
+        out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
+        again, cost_again = distributed_bundle_adjust(state, obs, mesh,
+                                                      num_iterations=BA_ITERATIONS)
+        ba_ms = _host_ms(torch, lambda: distributed_bundle_adjust(
+            state, obs, mesh, num_iterations=BA_ITERATIONS), 1, dev) / BA_ITERATIONS
+        rel = abs(cost.item() - single_cost.item()) / single_cost.item()
+        rms = float(torch.sqrt(2.0 * cost / (c * opc)))
+
+        rerun_same = _same_solve(torch, out, again, cost, cost_again)
+        world1_cost = cost.item()
+        _say(
+            f"sharding (a): distributed_bundle_adjust, {c} cameras x {l} landmarks x {c * opc} "
+            f"observations, {BA_ITERATIONS} LM iterations: cost {world1_cost:.1f} against "
+            f"bundle_adjust's {single_cost.item():.1f} ({rel:.3g} relative), rms {rms:.3f} px, "
+            f"rerun bit-equal {rerun_same}, bit-equal to bundle_adjust(assembly='scatter') "
+            f"{_same_solve(torch, out, scatter, cost, scatter_cost)}; {ba_ms:.2f} ms per LM "
+            f"iteration [{smi}]"
+        )
+        _require(rel <= BA_SCATTER_RTOL, "the sharded BA ends at another cost")
+        _require(rms < BA_MAX_RMS_PX, "the sharded BA: rms above the bar")
+        _require(rerun_same, "the sharded BA: two runs differ")
+        del p, state, obs, out, again, scatter
+
+        # Composed SLAM: phase 15's gated sequence with every BA sharded.
+        recipe = slam_bench_recipe(port, slam_frames, width, height)
+        images, gt_r, gt_t, k_mat = (recipe[k] for k in ("images", "gt_r", "gt_t", "k_mat"))
+        sift_cfg = recipe["sift_cfg"]
+        sharded_cfg = dataclasses.replace(recipe["slam_cfg"], dist_ba_min_landmarks=0)
+        track = dict(reassoc_window=recipe["reassoc_window"], **recipe["solved"])
+        read, restore = _count_bas(slam_module)
+        try:
+            unsharded = port.run_slam_from_images(images, k_mat, sift_cfg, recipe["slam_cfg"],
+                                                  frontend_chunk=SLAM_CHUNK, device=dev, **track)
+        finally:
+            n_ba = read()[0]
+            restore()
+        ate_unsharded = port.evaluate_ate(unsharded, gt_r, gt_t, device=dev)
+        zero()
+        read, restore = _count_bas(slam_module)
+        try:
+            t0 = time.perf_counter()
+            sharded = port.run_slam_from_images(images, k_mat, sift_cfg, sharded_cfg, mesh=mesh,
+                                                frontend_chunk=SLAM_CHUNK, device=dev, **track)
+            _sync(torch, dev)
+            slam_seconds = time.perf_counter() - t0
+        finally:
+            slam_bas = read()
+            restore()
+        slam_launches = counts()
+        ate = port.evaluate_ate(sharded, gt_r, gt_t, device=dev)
+        chunks = -(-slam_frames // SLAM_CHUNK)
+        _say(
+            f"sharding (a): run_slam_from_images(mesh=...) on phase 15's gated sequence "
+            f"({slam_frames} x {height}x{width}, {SLAM_MATCH_GATE_PX:g} px gate, "
+            f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches K1/K2/K3 "
+            f"{slam_launches} (expected {(3 * chunks, 2 * chunks, 0)}), BAs single/sharded "
+            f"{slam_bas} (the run without a mesh: {n_ba} BAs), valid landmarks "
+            f"{int(sharded.landmark_valid.sum())}, ATE {ate:.4f} (bars: < {SLAM_REF_ATE}, within "
+            f"{SLAM_ATE_GAP} of phase 15's {refs['solved_ate']:.4f}; without a mesh here "
+            f"{ate_unsharded:.4f}); {1e3 * slam_seconds:.1f} ms, "
+            f"{slam_frames / slam_seconds:.2f} frames/s, a reading [{smi}]"
+        )
+        if on_card:
+            _require(slam_launches == (3 * chunks, 2 * chunks, 0),
+                     f"the sharded SLAM path launched K1/K2/K3 {slam_launches} times")
+        _require(slam_bas == (0, n_ba) and n_ba > 0, "not every BA of the run was sharded")
+        _require(np.isfinite(sharded.translations).all(), "sharded SLAM: not finite")
+        _require(ate < SLAM_REF_ATE, "sharded SLAM: ATE above the bar")
+        _require(abs(ate - refs["solved_ate"]) < SLAM_ATE_GAP,
+                 "sharded SLAM: ATE far from the run without a mesh")
+
+        # The streaming session with the same mesh: the sharded batch run's
+        # result, bit for bit.
+        zero()
+        read, restore = _count_bas(slam_module)
+        try:
+            sess = port.SlamSession(k_mat, sift_cfg, sharded_cfg, mesh=mesh, device=dev,
+                                    **track)
+            for image in images:
+                sess.add_frame(image)
+            streamed = sess.finalize()
+        finally:
+            stream_bas = read()
+            restore()
+        stream_launches = counts()
+        stream_same = np.array_equal(streamed.rotations, sharded.rotations) and np.array_equal(
+            streamed.translations, sharded.translations)
+        start, win = 2, sharded_cfg.ba_interval
+        calls = sum(1 for t in range(1, slam_frames + 1)
+                    if t >= start + win and (t - start) % win == 0)
+        calls += (slam_frames - start) % win != 0
+        _say(
+            f"sharding (a): SlamSession(mesh=...) over the same frames: launches K1/K2/K3 "
+            f"{stream_launches} (expected {(3 * calls, 2 * calls, 0)}), BAs single/sharded "
+            f"{stream_bas}, bit-equal to the sharded batch run {stream_same}"
+        )
+        if on_card:
+            _require(stream_launches == (3 * calls, 2 * calls, 0),
+                     f"the sharded session launched K1/K2/K3 {stream_launches} times")
+        _require(stream_bas[0] == 0 and stream_bas[1] > 0, "the session's BAs were not sharded")
+        _require(stream_same, "the sharded session differs from the sharded batch run")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) world ``world`` on gloo, every rank on this device. The ranks need
+    # the card's memory that this process's allocator still caches from the
+    # phases before.
+    want = {k: getattr(want, k).cpu().numpy() for k in ("valid", "abs_x", "abs_y", "descriptor")}
+    if on_card:
+        torch.cuda.empty_cache()
+    spec = dict(device=dev.type, batch=batch, height=height, width=width, ba=ba_sizes,
+                orbit_frames=orbit_frames, full=True)
+    t0 = time.perf_counter()
+    mp.spawn(_sharding_rank, args=(world, work, spec), nprocs=world)
+    spawn_seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    gathered = np.load(os.path.join(work, "frontend.npz"))
+    valid = want["valid"]
+    valid_same = np.array_equal(gathered["valid"], valid)
+    diffs = {k: float(np.abs(gathered[k][valid] - want[k][valid]).max())
+             for k in ("abs_x", "abs_y", "descriptor")}
+    _say(
+        f"sharding (b), world {world} (gloo, every rank on {dev}), spawned in "
+        f"{spawn_seconds:.1f} s: the same {batch} frames, {batch // world} a rank: launches "
+        f"K1/K2/K3 by rank {[r['launches'] for r in ranks]} (expected "
+        f"{[cfg.num_octaves, 2, 0]} each); gathered against detect_and_describe_batched: valid "
+        f"equal {valid_same}, max abs diff x {diffs['abs_x']:.3g}, y {diffs['abs_y']:.3g}, "
+        f"descriptors {diffs['descriptor']:.3g} (bar {SHARD_ATOL}); K1/K2 vs plain on each "
+        f"rank's share: DoG and stacks {max(r['octave_err'] for r in ranks):.3g}, window samples "
+        f"{max(r['sample_err'] for r in ranks):.3g}, slots "
+        f"{min(r['slots_same'] for r in ranks):.6f}; frontend ms by rank "
+        f"{[round(r['frontend_ms'], 2) for r in ranks]} (readings) [{smi}]"
+    )
+    for r in ranks:
+        for i, n in enumerate(r["launches"]):
+            total[i] += n
+        if on_card:
+            _require(r["launches"] == [cfg.num_octaves, 2, 0],
+                     f"rank {r['rank']} launched K1/K2/K3 {r['launches']} times")
+            _require(not r["rebuilt"], f"rank {r['rank']} rebuilt the kernels: {r['rebuilt']}")
+        _require(max(r["octave_err"], r["sample_err"], r["described_err"]) <= MAX_ABS_ERR,
+                 f"rank {r['rank']}: a kernel differs from its plain version")
+        _require(r["masks_same"] >= MASK_AGREEMENT and r["slots_same"] >= SLOT_AGREEMENT,
+                 f"rank {r['rank']}: masks or slots differ from the plain path's")
+    _require(valid_same and max(diffs.values()) <= SHARD_ATOL,
+             "the world-2 frontend differs from the unsharded one")
+    octave_err = max(octave_err, *(r["octave_err"] for r in ranks))
+    sample_err = max(sample_err, *(r["sample_err"] for r in ranks))
+
+    costs = [r["ba_cost"] for r in ranks]
+    ba_rel = abs(costs[0] - world1_cost) / world1_cost
+    _say(
+        f"sharding (b): distributed_bundle_adjust on the same problem: cost by rank {costs} "
+        f"({ba_rel:.3g} relative of world 1's), rms {ranks[0]['ba_rms']:.3f} px, reruns "
+        f"bit-equal {[r['ba_rerun_equal'] for r in ranks]}; ms per LM iteration by rank "
+        f"{[round(r['ba_ms_per_iteration'], 2) for r in ranks]} (readings) [{smi}]"
+    )
+    _require(len(set(costs)) == 1, "the ranks' BA costs differ")
+    _require(ba_rel <= BA_SCATTER_RTOL, "the world-2 BA ends at another cost than world 1's")
+    _require(all(r["ba_rerun_equal"] for r in ranks), "a world-2 BA rerun differs")
+
+    o = ranks[0]
+    _say(
+        f"sharding (b): config[3]'s orbit ({orbit_frames} frames) through run_slam(mesh=...), "
+        f"dist_ba_min_landmarks=0: valid landmarks {o['orbit_landmarks']} (bar > "
+        f"{ORBIT_MIN_LANDMARKS}), ATE {o['orbit_ate']:.4f} (bars: < {ORBIT_ATE}, within "
+        f"{SLAM_ATE_GAP} of phase 15's {refs['orbit_ate']:.4f}), BAs single/sharded by rank "
+        f"{[r['orbit_bas'] for r in ranks]} (without a mesh: {refs['orbit_bas']}), every rank's "
+        f"trajectory bit-equal to rank 0's {[r['orbit_same_on_every_rank'] for r in ranks]}; "
+        f"seconds by rank {[round(r['orbit_seconds'], 3) for r in ranks]} (readings); peak "
+        f"device memory by rank {[round(r.get('peak_gib', float('nan')), 3) for r in ranks]} GiB "
+        f"[{smi}]"
+    )
+    _require(o["orbit_landmarks"] > ORBIT_MIN_LANDMARKS, "sharded config[3]: too few landmarks")
+    _require(o["orbit_ate"] < ORBIT_ATE, "sharded config[3]: ATE above the bar")
+    _require(abs(o["orbit_ate"] - refs["orbit_ate"]) < SLAM_ATE_GAP,
+             "sharded config[3]: ATE far from the run without a mesh")
+    _require(all(r["orbit_bas"] == [0, refs["orbit_bas"]] for r in ranks),
+             "sharded config[3]: not every BA was sharded")
+    _require(all(r["orbit_same_on_every_rank"] for r in ranks), "the ranks' trajectories differ")
+    shutil.rmtree(work, ignore_errors=True)
+    return tuple(total), octave_err, sample_err
 
 
 def cli_records(outdir):
@@ -2060,12 +2571,16 @@ def main() -> int:
     two_view_err = _phase_two_view(torch, port, smi)
     max_err, sample_err = max(max_err, two_view_err[0]), max(sample_err, two_view_err[1])
     _phase_solvers(torch, port, smi)
-    slam_launches, stream_launches, slam_octave_err, slam_sample_err = _phase_slam(
+    slam_launches, stream_launches, slam_octave_err, slam_sample_err, slam_refs = _phase_slam(
         torch, port, smi, device
     )
     max_err, sample_err = max(max_err, slam_octave_err), max(sample_err, slam_sample_err)
     surface_launches, surface_octave_err = _phase_surfaces(torch, port, smi, device)
     max_err = max(max_err, surface_octave_err)
+    shard_launches, shard_octave_err, shard_sample_err = _phase_sharding(
+        torch, port, smi, device, slam_refs
+    )
+    max_err, sample_err = max(max_err, shard_octave_err), max(sample_err, shard_sample_err)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -2077,7 +2592,7 @@ def main() -> int:
                 "source": CSRC + "octave.cu",
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
-                + stream_launches[0] + surface_launches[0],
+                + stream_launches[0] + surface_launches[0] + shard_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -2091,7 +2606,7 @@ def main() -> int:
                 "source": CSRC + "describe.cu",
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
-                + stream_launches[1] + surface_launches[1],
+                + stream_launches[1] + surface_launches[1] + shard_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -2105,7 +2620,7 @@ def main() -> int:
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
-                + surface_launches[2],
+                + surface_launches[2] + shard_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

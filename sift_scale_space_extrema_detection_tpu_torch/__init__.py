@@ -18,7 +18,9 @@ sift_scale_space_extrema_detection_tpu_torch.evaluate DIR``: a TUM-RGBD or
 KITTI sequence → trajectory → ATE/RPE), over the image I/O
 (``core/image.py``, the native loader ``core/native_io.py``), the dataset
 layer (``data/``: TUM and KITTI readers and writers, pose files) and
-``utils/visualize.py``.
+``utils/visualize.py``. The ``parallel`` subpackage runs the frontend,
+keyframe matching, bundle adjustment and SLAM over the ranks of a
+``torch.distributed`` group.
 The package imports torch and numpy only; the JAX package stays the
 reference it is tested against.
 """
@@ -57,7 +59,7 @@ from .models.slam import (
     run_slam_from_images,
 )
 from .models.streaming import SlamSession
-from . import data, sfm
+from . import data, parallel, sfm
 from .ops.descriptor import DescribedKeypoints, concat_described
 from .ops.matching import Matches, descriptor_distances, match_descriptors
 from .ops.ransac import (
@@ -85,6 +87,7 @@ __all__ = [
     "refine_relative_pose",
     "sampson_error",
     "data",
+    "parallel",
     "sfm",
     "SlamConfig",
     "SlamResult",

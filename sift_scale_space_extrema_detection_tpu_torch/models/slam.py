@@ -51,6 +51,14 @@ pairs a run handles. A streaming session, whose track count grows from step
 to step and which matches a few pairs a step, therefore computes each
 window as the batch run does, bit for bit.
 
+**Over a mesh.** With a ``mesh`` of ``parallel/`` every rank runs the
+whole pipeline on the same inputs: the frontend data-parallel, the window
+and loop matching query-sharded, and each BA of at least
+``SlamConfig.dist_ba_min_landmarks`` landmarks landmark-sharded, each
+gathered or reduced so that every rank holds the same result. Everything
+else (RANSAC seeds, the pose gate, pruning, the BA schedule) is host numpy
+that every rank computes alike, so the ranks stay in step.
+
 Data association is an input (per-frame ``(landmark_id, pixel)`` pairs):
 exact with the synthetic generator, from descriptor matching with the image
 frontend (:func:`build_tracks_from_images`).
@@ -67,6 +75,12 @@ import torch
 from ..core.device import Device, on_device, require_full_float32_matmul, resolve_device
 from ..ops.matching import match_descriptors
 from ..ops.ransac import essential_from_samples, estimate_essential_ransac
+from ..parallel.distributed import (
+    all_gather_rows,
+    detect_and_describe_data_parallel,
+    distributed_bundle_adjust,
+)
+from ..parallel.multihost import mesh_device, mesh_group
 from ..sfm import geometry as geo
 from ..sfm.ba import BAState, Observations, bundle_adjust, reprojection_residuals
 from ..sfm.evaluate import absolute_trajectory_error
@@ -108,6 +122,12 @@ class SlamConfig:
     # observations, so a garbage pose can neither enter BA nor poison later
     # triangulations. Scale-free (a ratio of estimated steps). 0 disables.
     pose_jump_gate: float = 25.0
+    # Minimum landmark count before a BA goes through the landmark-sharded
+    # solver on a mesh (run_slam._ba). The JAX package compares it with the
+    # map padded to a power-of-two bucket of the track count; here a BA sees
+    # only the landmarks its observations name (see the module), and the
+    # threshold is compared with that count.
+    dist_ba_min_landmarks: int = 4096
     # Run the windowed BA every N tracking windows (1 = every window). The
     # final window always runs BA.
     ba_every: int = 1
@@ -122,10 +142,17 @@ class SlamResult:
     num_observations: int
 
 
-def _target(device: Device) -> torch.device:
+def _target(device: Device, mesh=None) -> torch.device:
     """The device an entry point works on: the card unless ``device`` names
-    another, and an error where there is no card (``core/device.py``)."""
-    return resolve_device(torch.empty(0), device)
+    another, and an error where there is no card (``core/device.py``). A
+    ``mesh`` must lie on a device of the same type."""
+    target = resolve_device(torch.empty(0), device)
+    if mesh is not None and mesh.device_type != target.type:
+        raise ValueError(
+            f"a {mesh.device_type!r} mesh cannot serve a run on {target}: make the "
+            "mesh on the device type the run asks for"
+        )
+    return target
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -237,6 +264,7 @@ def run_slam(
     visible: np.ndarray,
     k_mat: np.ndarray,
     cfg: SlamConfig | None = None,
+    mesh=None,
     checkpoint_dir: str | None = None,
     checkpoint_interval: int = 10,
     resume: bool = False,
@@ -251,6 +279,12 @@ def run_slam(
     ``visible``: (F, L) bool association mask. Landmark ids are global (as
     descriptor-track ids would be after matching).
 
+    ``mesh``: a ``DeviceMesh`` of ``parallel/`` routes every bundle
+    adjustment of at least ``cfg.dist_ba_min_landmarks`` landmarks through
+    the landmark-sharded solver (``parallel/distributed.py``); every rank
+    passes the same inputs and gets the same result. ``None`` runs every
+    BA on this device alone.
+
     ``checkpoint_dir`` enables periodic persistence of the full SLAM state
     (poses, map, observations) every ``checkpoint_interval`` frames, in the
     npz + JSON format of ``utils/checkpoint.py`` (or a ``mem://`` store);
@@ -264,7 +298,7 @@ def run_slam(
     speed). ``device``: see ``core/device.py``; ``dtype``: see the module.
     """
     cfg = cfg or SlamConfig()
-    target = _target(device)
+    target = _target(device, mesh)
     require_full_float32_matmul(target)
 
     def _st(name):
@@ -281,6 +315,18 @@ def run_slam(
     fx = k_mat[0, 0]
 
     def _ba(state, obs, num_iterations, num_fixed_cameras, sorted_pad=0):
+        # Shard the landmark block only when it is large enough to pay for
+        # the reductions over the ranks (the JAX package measured composed
+        # SLAM 0.47x as fast with every small windowed BA sharded).
+        if mesh is not None and state.points.shape[0] >= cfg.dist_ba_min_landmarks:
+            return distributed_bundle_adjust(
+                state,
+                obs,
+                mesh,
+                num_iterations=num_iterations,
+                num_fixed_cameras=num_fixed_cameras,
+                huber_delta=cfg.huber_px,
+            )
         return bundle_adjust(
             state,
             obs,
@@ -901,7 +947,7 @@ def _frame_sketches(desc, valid):
     return s / torch.linalg.norm(s, dim=-1, keepdim=True).clamp(min=1e-9)
 
 
-def _match_window(desc, valid, query_f, kf_table, ratio):
+def _match_window(desc, valid, query_f, kf_table, ratio, mesh=None):
     """Re-association matches of query frames against keyframes.
 
     ``query_f``: (Q,) frame indices of the queries; ``kf_table``: (Q, W)
@@ -909,7 +955,26 @@ def _match_window(desc, valid, query_f, kf_table, ratio):
     ``(index, valid)`` of shape (Q, W, S) mapping query slots → keyframe
     slots; an unused slot holds index 0 and no valid match, as a match
     against an empty frame does (:func:`_match_pairs`).
+
+    With a ``mesh`` the queries are split over the ranks, each rank's share
+    padded with unused rows to the same count, and the matches gathered: the
+    same result, since a pair's matches do not depend on the pairs
+    dispatched with it.
     """
+    if mesh is not None:
+        _, world, rank = mesh_group(mesh)
+        num = len(query_f)
+        share = -(-num // world)
+        pad = share * world - num
+        query_f = np.pad(np.asarray(query_f), (0, pad))
+        kf_table = np.pad(kf_table, ((0, pad), (0, 0)), constant_values=-1)
+        mine = slice(rank * share, (rank + 1) * share)
+        got = _match_window(desc, valid, query_f[mine], kf_table[mine], ratio)
+        dev = mesh_device(mesh)
+        return tuple(
+            all_gather_rows(torch.from_numpy(a).to(dev), mesh)[:num].cpu().numpy()
+            for a in got
+        )
     q, w, s = len(query_f), kf_table.shape[1], desc.shape[1]
     index = np.zeros((q, w, s), np.int32)
     ok = np.zeros((q, w, s), bool)
@@ -936,30 +1001,41 @@ def describe_frames(
     frontend_chunk: int = 16,
     profile=None,
     device: Device = None,
+    mesh=None,
 ):
     """``detect_and_describe_batched`` over (F, H, W) frames (uint8,
     uint16, or float in [0, 1]) in chunks of ``frontend_chunk`` frames,
     which bounds peak device memory; the chunks' results concatenated on
-    the device. ``device``: see ``core/device.py``.
+    the device. ``device``: see ``core/device.py``. With a ``mesh`` a chunk
+    is ``frontend_chunk`` frames a rank, split over the ranks by
+    ``detect_and_describe_data_parallel`` (which pads a chunk to a multiple
+    of the world size), and every rank gets every frame's result.
 
     The JAX package pads the tail chunk to the chunk size so that one
     compiled program serves every chunk; eager PyTorch compiles nothing, so
     the tail runs as it is (each image is described on its own, so the
     padding changes no result).
     """
-    target = _target(device)
+    target = _target(device, mesh)
 
     def _st(name):
         return profile.stage(name) if profile is not None else nullcontext()
 
+    if mesh is not None:
+        frontend_chunk *= mesh_group(mesh)[1]
     up_dtype = _upload_dtype(images)
     parts = []
     for lo in _prof_iter(range(0, images.shape[0], frontend_chunk), _st, "frontend"):
         with _st("frontend_upload"):
             part = torch.from_numpy(
                 np.ascontiguousarray(images[lo : lo + frontend_chunk], up_dtype)
-            ).to(target)
-        out = detect_and_describe_batched(part, sift_cfg, device=target)
+            )
+            if mesh is None:
+                part = part.to(target)
+        if mesh is None:
+            out = detect_and_describe_batched(part, sift_cfg, device=target)
+        else:
+            out = detect_and_describe_data_parallel(part, sift_cfg, mesh)
         if profile is not None:
             # Attribution-only sync: splits device compute out of the fetch
             # stage (production runs stay asynchronous until the fetch).
@@ -991,6 +1067,7 @@ def build_tracks_from_images(
     loop_query_stride: int = 1,
     loop_topk: int = 8,
     device: Device = None,
+    mesh=None,
 ):
     """Frontend + sequential descriptor matching → landmark tracks.
 
@@ -1011,19 +1088,22 @@ def build_tracks_from_images(
     older keyframes to re-acquire tracks lost in the immediate predecessor.
     ``loop_stride`` > 0 runs the loop-closure association pass.
     ``device``: see ``core/device.py``; descriptors stay on it, the track
-    bookkeeping is host numpy.
+    bookkeeping is host numpy. With a ``mesh`` the frontend runs
+    data-parallel and the window and loop matching query-sharded over its
+    ranks; the tracks are those of the run without one.
 
     The frontend is :func:`describe_frames`, the association
     :func:`build_tracks_from_described`.
     """
-    target = _target(device)
-    described = describe_frames(images, sift_cfg, frontend_chunk, profile, target)
+    target = _target(device, mesh)
+    described = describe_frames(images, sift_cfg, frontend_chunk, profile, target, mesh)
     return build_tracks_from_described(
         described, k_mat, match_ratio=match_ratio, max_tracks=max_tracks,
         ransac_threshold_px=ransac_threshold_px, reassoc_window=reassoc_window,
         profile=profile, max_match_px=max_match_px, loop_stride=loop_stride,
         loop_min_gap=loop_min_gap, loop_min_matches=loop_min_matches,
         loop_query_stride=loop_query_stride, loop_topk=loop_topk, device=target,
+        mesh=mesh,
     )
 
 
@@ -1042,12 +1122,14 @@ def build_tracks_from_described(
     loop_query_stride: int = 1,
     loop_topk: int = 8,
     device: Device = None,
+    mesh=None,
 ):
     """The association half of :func:`build_tracks_from_images`, from
     described keypoints ``(F, S)`` (a ``DescribedKeypoints``; its arguments
     and result are that function's). ``device``: see ``core/device.py``
     (the card the keypoints lie on, else the default card)."""
     target = resolve_device(described.descriptor, device)
+    _target(target, mesh)
     described = on_device(described, target)
 
     def _st(name):
@@ -1068,7 +1150,7 @@ def build_tracks_from_described(
     v_all = described.valid
     next_track = chain_frames(
         d_all, v_all, 0, xs, ys, valid, track_of, 0, 0, k_mat, match_ratio, max_tracks,
-        ransac_threshold_px, reassoc_window, max_match_px, profile,
+        ransac_threshold_px, reassoc_window, max_match_px, profile, mesh,
     )
 
     # --- loop-closure data association (optional) -----------------------
@@ -1103,7 +1185,7 @@ def build_tracks_from_described(
                 cands = np.sort(cands[order])
             kf_table[i, : min(len(cands), n_cols)] = cands[:n_cols]
         with _st("loop_match"):
-            l_idx, l_val = _match_window(d_all, v_all, qf, kf_table, match_ratio)
+            l_idx, l_val = _match_window(d_all, v_all, qf, kf_table, match_ratio, mesh)
         if profile is not None:
             profile.count()
         # Candidate pairs with enough mutual matches for verification.
@@ -1196,6 +1278,7 @@ def chain_frames(
     reassoc_window,
     max_match_px,
     profile=None,
+    mesh=None,
 ) -> int:
     """Chain frames ``start ..`` into the tracks of ``track_of`` (F, S) (-1 =
     untracked; frames before ``start`` already chained) and return the new
@@ -1211,7 +1294,8 @@ def chain_frames(
     matches on synthetic texture are about half wrong), the keypoints left
     untracked matched against up to ``reassoc_window`` older keyframes, and
     the rest open new tracks up to ``max_tracks``. ``max_match_px``: see
-    :func:`build_tracks_from_images`.
+    :func:`build_tracks_from_images`; ``mesh``: the window matching is
+    query-sharded over its ranks (:func:`_match_window`).
     """
 
     def _st(name):
@@ -1282,7 +1366,7 @@ def chain_frames(
         with _st("match_window"):
             w_idx_all, w_val_all = _match_window(
                 desc, desc_valid, qf - desc_base,
-                np.where(kf_table >= 0, kf_table - desc_base, -1), match_ratio,
+                np.where(kf_table >= 0, kf_table - desc_base, -1), match_ratio, mesh,
             )
         _count()
 
@@ -1342,6 +1426,7 @@ def run_slam_from_images(
     sift_cfg,
     slam_cfg: SlamConfig | None = None,
     match_ratio: float = 0.9,
+    mesh=None,
     reassoc_window: int = 0,
     frontend_chunk: int = 16,
     profile=None,
@@ -1358,22 +1443,25 @@ def run_slam_from_images(
 
     Composes the SIFT frontend (detect+describe, batched), sequential
     descriptor tracking (:func:`build_tracks_from_images`) and the
-    incremental geometric back end (:func:`run_slam`). ``slam_kwargs``
-    forward to :func:`run_slam` (checkpointing etc.). ``device``: see
-    ``core/device.py``; ``dtype``: the back end's (see the module).
-    ``max_tracks`` is the tracking's room (the JAX package fixes it at its
-    default, 4096); once it is full, no new track opens.
+    incremental geometric back end (:func:`run_slam`). With a ``mesh`` the
+    whole pipeline runs over its ranks: the data-parallel frontend, the
+    query-sharded window matching and the landmark-sharded BA (see
+    :func:`run_slam`). ``slam_kwargs`` forward to :func:`run_slam`
+    (checkpointing etc.). ``device``: see ``core/device.py``; ``dtype``: the
+    back end's (see the module). ``max_tracks`` is the tracking's room (the
+    JAX package fixes it at its default, 4096); once it is full, no new
+    track opens.
     """
-    target = _target(device)
+    target = _target(device, mesh)
     pixels, visible, _ = build_tracks_from_images(
         images, sift_cfg, k_mat=k_mat, match_ratio=match_ratio, max_tracks=max_tracks,
         reassoc_window=reassoc_window, frontend_chunk=frontend_chunk,
         profile=profile, max_match_px=max_match_px, loop_stride=loop_stride,
-        loop_query_stride=loop_query_stride, loop_topk=loop_topk, device=target,
+        loop_query_stride=loop_query_stride, loop_topk=loop_topk, device=target, mesh=mesh,
     )
     return run_slam(
-        pixels, visible, k_mat, slam_cfg, profile=profile, device=target, dtype=dtype,
-        **slam_kwargs,
+        pixels, visible, k_mat, slam_cfg, mesh=mesh, profile=profile, device=target,
+        dtype=dtype, **slam_kwargs,
     )
 
 

@@ -36,6 +36,7 @@ import torch
 
 from ..config import SiftConfig
 from ..core.device import Device
+from ..parallel.distributed import detect_and_describe_data_parallel
 from ..utils.checkpoint import remove_checkpoint
 from .frontend import detect_and_describe_batched
 from .slam import (
@@ -63,7 +64,10 @@ class SlamSession:
 
     ``device``: see ``core/device.py`` (the card, or an error where there
     is none, unless ``device="cpu"``); ``dtype``: the back end's
-    (``models/slam.py``).
+    (``models/slam.py``). ``mesh``: a ``DeviceMesh`` of ``parallel/``; each
+    step's frontend, window matching and BA then run over its ranks, as the
+    batch run's do (``models/slam.py``), and every rank steps the same
+    session on the same frames.
     """
 
     def __init__(
@@ -78,10 +82,12 @@ class SlamSession:
         max_match_px: float | None = None,
         ransac_threshold_px: float = 2.0,
         workdir: str | None = None,
+        mesh=None,
         device: Device = None,
         dtype: torch.dtype = torch.float32,
     ):
-        self.device = _target(device)
+        self.device = _target(device, mesh)
+        self.mesh = mesh
         self.dtype = dtype
         self.k_mat = np.asarray(k_mat)
         self.sift_cfg = sift_cfg or SiftConfig()
@@ -168,6 +174,7 @@ class SlamSession:
             visible,
             self.k_mat,
             self.slam_cfg,
+            mesh=self.mesh,
             checkpoint_dir=self._workdir,
             checkpoint_interval=self.window,
             resume=resume,
@@ -189,8 +196,11 @@ class SlamSession:
         """Detect+describe the new frames and chain them into tracks
         (:func:`~.slam.chain_frames`, as the batch run chains them)."""
         images = torch.from_numpy(np.ascontiguousarray(frames, _upload_dtype(frames)))
-        described = detect_and_describe_batched(images.to(self.device), self.sift_cfg,
-                                                 device=self.device)
+        if self.mesh is None:
+            described = detect_and_describe_batched(images.to(self.device), self.sift_cfg,
+                                                     device=self.device)
+        else:
+            described = detect_and_describe_data_parallel(images, self.sift_cfg, self.mesh)
         f0 = self._frames_done  # global index of the first new frame
         valid_new = described.valid.cpu().numpy()
         xs_new = described.abs_x.cpu().numpy()
@@ -213,6 +223,7 @@ class SlamSession:
             self._desc, self._valid, self._dev_base, self._xs, self._ys, self._valid_host,
             self._track_of, self._next_track, f0, self.k_mat, self.match_ratio,
             self.max_tracks, self.ransac_threshold_px, self.reassoc_window, self.max_match_px,
+            mesh=self.mesh,
         )
         num_frames = f0 + frames.shape[0]
 

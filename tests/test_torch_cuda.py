@@ -614,3 +614,129 @@ def test_evaluate_on_card_agrees_with_cpu(device, tmp_path, capsys):
     card, cpu = metrics
     assert card["frames"] == cpu["frames"] == 6
     assert card["ate_rmse"] < 0.25 and abs(card["ate_rmse"] - cpu["ate_rmse"]) < 0.02, metrics
+
+
+# --- sharding: parallel/ at world 1 on NCCL, and two gloo ranks on the card -----------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world-1 NCCL group in this process over a file store, and its mesh;
+    the group is destroyed after the module."""
+    import datetime
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    port.parallel.initialize_multihost(f"file://{store}", 1, 0, backend="nccl",
+                                       timeout=datetime.timedelta(seconds=60))
+    try:
+        yield port.parallel.make_mesh(1)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+SHARD_CFG = dict(num_octaves=3, max_keypoints_per_trio=128)
+
+
+def test_data_parallel_frontend_on_card_equals_the_batched_one(device, nccl_mesh):
+    images = torch.from_numpy(chip_smoke._make_batch(4, 96, 128))
+    cfg = port.SiftConfig(**SHARD_CFG)
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    got = port.parallel.detect_and_describe_data_parallel(images, cfg, nccl_mesh)
+    assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (3, 2, 0)
+    want = port.detect_and_describe_batched(images, cfg)
+    assert got.valid.is_cuda and int(got.valid.sum()) > 0
+    for f in dataclasses.fields(got):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    idx, _, ok = port.parallel.match_against_keyframes_sharded(
+        got.descriptor[0], got.valid[0], got.descriptor[1:], got.valid[1:], nccl_mesh
+    )
+    for k in range(3):
+        ref = port.match_descriptors(got.descriptor[0], got.valid[0], got.descriptor[k + 1],
+                                     got.valid[k + 1])
+        assert torch.equal(ok[k], ref.valid)
+        assert torch.equal(idx[k][ref.valid], ref.index[ref.valid])
+
+
+def test_distributed_bundle_adjust_on_card_at_world_1(device, nccl_mesh):
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
+        BAState,
+        Observations,
+        bundle_adjust,
+    )
+
+    p = chip_smoke._ba_problem(np.random.default_rng(0), 6, 128, 64)
+    state = BAState(*(torch.from_numpy(p[k]) for k in ("rotations", "translations", "points",
+                                                       "k_mat")))
+    obs = Observations(torch.from_numpy(p["camera"]), torch.from_numpy(p["landmark"]),
+                       torch.from_numpy(p["uv"]), torch.ones(6 * 64, dtype=torch.bool))
+    _, want = bundle_adjust(state, obs, num_iterations=10)
+    out, cost = port.parallel.distributed_bundle_adjust(state, obs, nccl_mesh, num_iterations=10)
+    again, cost_again = port.parallel.distributed_bundle_adjust(state, obs, nccl_mesh,
+                                                                num_iterations=10)
+    assert out.points.is_cuda and cost.is_cuda
+    assert abs(cost.item() - want.item()) <= 1e-3 * want.item()
+    assert torch.equal(out.points, again.points) and torch.equal(cost, cost_again)
+
+
+def test_sharded_slam_and_session_on_card_at_world_1(device, nccl_mesh):
+    """Every BA sharded (threshold 0): the orbit's ATE within 0.02 of the
+    run without a mesh, and ``SlamSession(mesh=…)`` bit-equal to the batch
+    run with the same mesh."""
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    seq = _orbit(seed=6, frames=12, landmarks=100)
+    cfg = port.SlamConfig(ba_interval=4)
+    single = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg)
+    read, restore = chip_smoke._count_bas(slam_module)
+    try:
+        sharded = port.run_slam(seq.pixels, seq.visible, seq.k_mat,
+                                dataclasses.replace(cfg, dist_ba_min_landmarks=0), mesh=nccl_mesh)
+    finally:
+        calls = read()
+        restore()
+    assert calls[0] == 0 and calls[1] > 0
+    ate = port.evaluate_ate(sharded, seq.rotations, seq.translations)
+    assert ate < 0.1
+    assert abs(ate - port.evaluate_ate(single, seq.rotations, seq.translations)) < 0.02
+
+    images, _, _, k_mat = chip_smoke._test_sequence(synthetic)
+    sift_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
+    slam_cfg = port.SlamConfig(ba_interval=3, ba_window=6, dist_ba_min_landmarks=0)
+    batch = port.run_slam_from_images(images, k_mat, sift_cfg, slam_cfg, mesh=nccl_mesh,
+                                      reassoc_window=2)
+    sess = port.SlamSession(k_mat, sift_cfg, slam_cfg, mesh=nccl_mesh)
+    for image in images:
+        sess.add_frame(image)
+    streamed = sess.finalize()
+    assert np.array_equal(streamed.rotations, batch.rotations)
+    assert np.array_equal(streamed.translations, batch.translations)
+
+
+def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path):
+    """Two gloo ranks on the one card, 2 frames each (``chip_smoke.py`` phase
+    17 (b)'s rank): each launches K1 per octave and K2 per stage, K1 and K2
+    equal their plain versions on its share, and the gathered result equals
+    the batched frontend's within 1e-4."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    spec = dict(device="cuda", batch=4, height=96, width=128, full=False)
+    mp.spawn(chip_smoke._sharding_rank, args=(2, str(tmp_path), spec), nprocs=2)
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    want = port.detect_and_describe_batched(
+        torch.from_numpy(chip_smoke._make_batch(4, 96, 128)), cfg)
+    got = np.load(tmp_path / "frontend.npz")
+    valid = want.valid.cpu().numpy()
+    assert np.array_equal(got["valid"], valid) and valid.sum() > 0
+    for key in ("abs_x", "abs_y", "descriptor"):
+        diff = np.abs(got[key][valid] - getattr(want, key).cpu().numpy()[valid]).max()
+        assert diff <= chip_smoke.SHARD_ATOL, key
+    for rank in range(2):
+        rec = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        assert rec["launches"] == [4, 2, 0], rec
+        assert max(rec["octave_err"], rec["sample_err"], rec["described_err"]) == 0.0, rec
+        assert rec["slots_same"] == 1.0 and not rec["rebuilt"], rec

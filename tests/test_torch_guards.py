@@ -76,6 +76,14 @@ def test_port_runs_without_importing_jax():
         res = port.run_slam(seq.pixels, seq.visible, seq.k_mat, port.SlamConfig(ba_interval=3),
                             checkpoint_dir="mem://no_jax", device="cpu")
         debug.assert_finite(res.rotations)
+        import tempfile
+        from sift_scale_space_extrema_detection_tpu_torch import parallel
+        with tempfile.TemporaryDirectory() as tmp:
+            parallel.initialize_multihost(f"file://{tmp}/store", 1, 0, backend="gloo")
+            mesh = parallel.make_mesh(device_type="cpu")
+            parallel.distributed_bundle_adjust(state, obs, mesh, num_iterations=1,
+                                               num_fixed_cameras=0)
+            torch.distributed.destroy_process_group()
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not leaked, leaked
         assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
@@ -88,6 +96,40 @@ def test_port_runs_without_importing_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok ")
+
+
+def test_a_cuda_mesh_without_a_card_raises(monkeypatch):
+    # The check comes before any process group is needed.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device.*"cpu" mesh'):
+        port.parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.parallel.global_mesh(device_type="cuda")
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(coordinator_address="localhost:1"),
+        dict(num_processes=2),
+        dict(process_id=0),
+        dict(coordinator_address="localhost:1", num_processes=2),
+    ],
+    ids=["address", "processes", "id", "address+processes"],
+)
+def test_a_partial_initialize_multihost_raises(kwargs):
+    # Raised before any rendezvous is tried.
+    with pytest.raises(ValueError, match="go together"):
+        port.parallel.initialize_multihost(**kwargs)
+
+
+def test_a_mesh_of_another_device_type_is_refused():
+    class CudaMesh:
+        device_type = "cuda"
+
+    seq_pix, seq_vis = np.zeros((3, 4, 2)), np.ones((3, 4), bool)
+    with pytest.raises(ValueError, match="mesh cannot serve a run on cpu"):
+        port.run_slam(seq_pix, seq_vis, np.eye(3), mesh=CudaMesh(), device="cpu")
 
 
 def test_no_file_of_the_port_imports_jax():

@@ -55,9 +55,8 @@ def _ate(result, seq):
     return evaluate_ate(result, seq.rotations, seq.translations, **CPU)
 
 
-def test_slam_config_is_the_references_less_the_mesh_threshold():
+def test_slam_config_is_the_references():
     want = {f.name: f.default for f in dataclasses.fields(jslam.SlamConfig)}
-    del want["dist_ba_min_landmarks"]  # the sharded solver is left for A6
     assert {f.name: f.default for f in dataclasses.fields(SlamConfig)} == want
 
 
@@ -76,6 +75,36 @@ def test_run_slam_matches_the_reference_in_float64(monkeypatch):
     valid = want.landmark_valid
     np.testing.assert_allclose(got.points[valid], want.points[valid], rtol=0, atol=1e-6)
     assert np.isnan(got.points[~valid]).all() == np.isnan(want.points[~valid]).all()
+
+
+def _config3_sequence():
+    """BASELINE config[3]: 50 keyframes orbiting 400 landmarks, 0.4 px of
+    noise, 2 % outliers (tests/test_slam.py:46-60)."""
+    return orbit_sequence(np.random.default_rng(2), num_frames=50, num_landmarks=400,
+                          noise_px=0.4, outlier_frac=0.02)
+
+
+def test_slam_50_keyframes_ate():
+    """BASELINE config[3] through the port: more than 200 valid landmarks
+    and ATE < 0.08 (1 % of the orbit's radius), the reference's bars."""
+    seq = _config3_sequence()
+    result = run_slam(seq.pixels, seq.visible, seq.k_mat, SlamConfig(), **CPU)
+    assert result.landmark_valid.sum() > 200
+    ate = _ate(result, seq)
+    assert ate < 0.08, f"ATE {ate:.4f} exceeds bound"
+
+
+@pytest.mark.slow
+def test_slam_50_keyframes_ate_in_both_packages():
+    """BASELINE config[3] through both packages, each at the reference's
+    bars (the JAX package's run takes minutes to compile)."""
+    seq = _config3_sequence()
+    want = jslam.run_slam(seq.pixels, seq.visible, seq.k_mat, jslam.SlamConfig())
+    got = run_slam(seq.pixels, seq.visible, seq.k_mat, SlamConfig(), **CPU)
+    for result in (want, got):
+        assert result.landmark_valid.sum() > 200
+        ate = _ate(result, seq)
+        assert ate < 0.08, f"ATE {ate:.4f} exceeds bound"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
