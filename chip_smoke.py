@@ -145,6 +145,30 @@ Phases (any failure exits non-zero and prints no result):
     with ``--device cpu``: launches 12/6/0, both ATEs < 0.06 and within 0.02
     of each other (phase 15 (c)'s bars).
 
+17. sharding over ``torch.distributed`` (``_phase_sharding``): (a) world 1
+    on NCCL in this process, the data-parallel frontend, keyframe-sharded
+    matching, the sharded BA and composed SLAM and streaming with a mesh,
+    each equal to its unsharded run; (b) two gloo ranks spawned on the card.
+18. the blur-by-blur frontend and the pooled refinement
+    (``_phase_blur_paths``), every part's three counts zeroed before it and
+    read after it. (a) ``detect_batched(blur="cuda")`` on the 64-frame batch
+    at 4 octaves × 5 scales: K1/K2/K3 0/0/29, every field and each octave's
+    per-trio ``Extrema`` equal to ``blur="separable"`` on the card, the first
+    8 frames against ``device="cpu"`` (slot agreement >= 0.999, p99 <= 0.1
+    px); ms, frames/s, peak memory and synchronised stages. (b)
+    ``detect_and_describe_batched(blur="cuda")``: 0/2/29, equal to
+    ``"separable"``, phase 6's bars against the CPU, K2 against its plain
+    version on this path's slots. (e) the data-parallel frontend with
+    ``blur="cuda"`` at world 1 on NCCL, equal to (b). (g) ``detect_batched``
+    with ``unified_refine`` and then ``refine_tail_pool``: card against CPU,
+    bit-equal reruns, the slots whose fate the pool moved. (c)
+    ``run_slam_from_images(blur="cuda")`` on phase 15's gated sequence:
+    0/6/48 (3 chunks × 16 blurs), bit-equal to ``"separable"``, phase 15
+    (c)'s bars on ``run_slam`` card against CPU. (d) ``SlamSession(blur=
+    "cuda")`` bit-equal to (c). (f) ``evaluate --blur pallas`` on phase 16's
+    40-frame TUM cut: equal to ``--blur cuda``, card against ``--device cpu
+    --blur separable`` at phase 16 (c)'s bars.
+
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
 once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s.
@@ -230,6 +254,7 @@ SURFACE_FRAMES = 200  # each on-disk rehearsal sequence
 SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card and on the CPU
 KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
 MATMUL_ATOL = 1e-5
+PER_TRIO_CPU_FRAMES = 8  # phase 18: the batch's frames also run with device="cpu"
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -323,6 +348,12 @@ def _window_bytes(torch, stacks, table, ys, xs) -> float:
 
     window = (extent(ys, hs) * extent(xs, ws))[valid].sum().item()
     return 16 * m + 8 * m * n + int(valid.sum()) * 8 * n + 4 * window
+
+
+def _blur_count(cfg) -> int:
+    """Blurs ``build_scale_space`` runs per call: every scale of octave 0,
+    every scale but the seed of each later octave."""
+    return cfg.num_octaves * cfg.scales_per_octave_total - (cfg.num_octaves - 1)
 
 
 def _slot_agreement(got, want):
@@ -1723,7 +1754,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     cfg = port.SiftConfig()  # the CLI's: 5 octaves x 3 scales, capacity 1024
-    n_blurs = cfg.num_octaves * cfg.scales_per_octave_total - (cfg.num_octaves - 1)
+    n_blurs = _blur_count(cfg)
 
     def cli_pair(path, name, flags, expected):
         """The CLI on ``dev`` (launches counted) and with ``--device cpu``,
@@ -1955,6 +1986,412 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
              "evaluate, solved variant: the card's ATE differs from the CPU's")
     shutil.rmtree(work, ignore_errors=True)
     return tuple(total), octave_err
+
+
+def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
+                      cpu_frames=PER_TRIO_CPU_FRAMES, slam_frames=SLAM_FRAMES,
+                      surface_frames=SURFACE_FRAMES, solved_frames=SURFACE_SOLVED_FRAMES):
+    """Phase 18: the blur-by-blur frontend (``blur="cuda"``: K3 once per
+    blurred scale, each trio capped on its own) on the detect, describe,
+    SLAM, streaming, sharded and ``evaluate`` paths, and the pooled
+    refinement flags on the fused path, on ``dev``. Each part's K1/K2/K3
+    launches are counted from zero. ``blur="cuda"`` is held equal to
+    ``blur="separable"`` on the same device (K3 is bit-equal to its plain
+    version), and the card against ``device="cpu"`` on the batch's first
+    ``cpu_frames`` frames (an image is detected on its own). Returns
+    ``(launches, sample_err)``: the (K1, K2, K3) launches of the paths driven
+    here and K2's largest difference from its plain version on this path's
+    slots."""
+    import dataclasses
+    import datetime
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from sift_scale_space_extrema_detection_tpu_torch import evaluate
+    from sift_scale_space_extrema_detection_tpu_torch.data import read_tum_trajectory
+    from sift_scale_space_extrema_detection_tpu_torch.models import frontend
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import describe_compact
+    from sift_scale_space_extrema_detection_tpu_torch.ops.extrema import (
+        compact_extrema,
+        find_extrema,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+        window_sample_pair,
+        window_sample_pair_reference,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.ops.refine import refine_keypoints
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
+        detect_and_describe_data_parallel,
+        initialize_multihost,
+        make_mesh,
+    )
+
+    on_card = dev.type == "cuda"
+    total = [0, 0, 0]
+
+    def zero():
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+
+    def counts():
+        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches)
+        for i, n in enumerate(got):
+            total[i] += n
+        return got
+
+    def reset_peak():
+        _sync(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+
+    def fields_equal(a, b):
+        return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+
+    def head(result):
+        """The first ``cpu_frames`` rows of a batched result, on the CPU."""
+        return type(result)(**{k: v[:cpu_frames].cpu() for k, v in vars(result).items()})
+
+    def against_cpu(got, want):
+        """Slot agreement and p99 position delta of ``got``'s first rows
+        against the CPU's ``want``; also the slots valid in both."""
+        got = head(got)
+        both = got.valid & want.valid
+        delta = torch.hypot(got.abs_x[both] - want.abs_x[both], got.abs_y[both] - want.abs_y[both])
+        p99 = torch.quantile(delta.double(), 0.99).item() if delta.numel() else float("nan")
+        return _slot_agreement(got, want), p99, got, both
+
+    width, height = size
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    n_blurs = _blur_count(cfg)
+    images_cpu = torch.from_numpy(_make_batch(batch, height, width))
+    images = images_cpu.to(dev)
+    first = images_cpu[:cpu_frames]
+    shape = f"{batch}x{height}x{width}"
+
+    # (a) the per-trio detect path.
+    port.detect_batched(images[:4], cfg, "cuda", device=dev)  # warm-up
+    reset_peak()
+    zero()
+    keypoints, extrema = port.detect_batched(images, cfg, "cuda", device=dev)
+    _sync(torch, dev)
+    launches = counts()
+    detect_peak = peak_gib()
+    separable, sep_extrema = port.detect_batched(images, cfg, "separable", device=dev)
+    same = fields_equal(keypoints, separable) and all(
+        fields_equal(a, b) for a, b in zip(extrema, sep_extrema)
+    )
+    fused, _ = port.detect_batched(images, cfg, device=dev)
+    cpu_keypoints, _ = port.detect_batched(first, cfg, "separable", device="cpu")
+    agreement, p99, _, _ = against_cpu(keypoints, cpu_keypoints)
+    detect_ms = _host_ms(torch, lambda: port.detect_batched(images, cfg, "cuda", device=dev), 3,
+                         dev)
+    fused_ms = _host_ms(torch, lambda: port.detect_batched(images, cfg, device=dev), 3, dev)
+    del separable, sep_extrema
+    # Synchronised stages: scale space, DoG, scan + compaction per octave, refinement.
+    stage = {"scale space": 0.0, "DoG": 0.0, "refinement": 0.0}
+    scan = [0.0] * cfg.num_octaves
+    iters = 3
+    for _ in range(iters):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        stacks = frontend.build_scale_space(images, cfg, "cuda", device=dev)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        dogs = frontend.build_dog(stacks)
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+        stage["scale space"] += t1 - t0
+        stage["DoG"] += t2 - t1
+        del stacks
+        selected = []
+        for octave, d in enumerate(dogs):
+            t0 = time.perf_counter()
+            e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
+            selected.append(compact_extrema(e, cfg.refine_capacity(octave)))
+            _sync(torch, dev)
+            scan[octave] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for octave, (d, sel) in enumerate(zip(dogs, selected)):
+            refine_keypoints(d, sel, octave, cfg)
+        _sync(torch, dev)
+        stage["refinement"] += time.perf_counter() - t0
+        del dogs, selected
+    stages = ", ".join(
+        [f"{k} {1e3 * v / iters:.2f} ms" for k, v in list(stage.items())[:2]]
+        + [f"scan + compaction octave {o} {1e3 * v / iters:.2f} ms" for o, v in enumerate(scan)]
+        + [f"refinement {1e3 * stage['refinement'] / iters:.2f} ms"]
+    )
+    counters = [e.num_candidates.sum().item() for e in extrema]
+    _say(
+        f"per-trio detect (a): detect_batched(blur='cuda') {shape}, {cfg.num_octaves} octaves x "
+        f"{cfg.scales_per_octave} scales, {cfg.max_keypoints_per_trio} slots a trio at octave 0: "
+        f"launches K1/K2/K3 {launches} (expected {(0, 0, n_blurs)}); every field and every "
+        f"octave's per-trio Extrema equal to blur='separable' on the same device {same}; valid "
+        f"keypoints {int(keypoints.valid.sum())} (fused path {int(fused.valid.sum())}), "
+        f"candidates per octave {counters}; against device='cpu' on the first {cpu_frames} "
+        f"frames: slot agreement {agreement:.6f}, p99 position delta {p99:.3g} px"
+    )
+    _say(
+        f"timing per-trio detect (a): {detect_ms:.2f} ms per {batch}-frame batch, "
+        f"{1e3 * batch / detect_ms:.1f} frames/s (fused path here {fused_ms:.2f} ms, "
+        f"{1e3 * batch / fused_ms:.1f} frames/s), peak device memory {detect_peak:.2f} GiB; "
+        f"synchronised stages: {stages} [{smi}]"
+    )
+    if on_card:
+        _require(launches == (0, 0, n_blurs), f"per-trio detect: launches {launches}")
+    _require(same, "per-trio detect: blur='cuda' differs from blur='separable'")
+    _require(int(keypoints.valid.sum()) > 0, "per-trio detect: no valid keypoints")
+    _require(all(bool(torch.isfinite(getattr(keypoints, f)[keypoints.valid]).all())
+                 for f in ("abs_x", "abs_y", "abs_sigma", "value")),
+             "per-trio detect: keypoints not finite")
+    _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
+             "per-trio detect: the card disagrees with the CPU")
+    del keypoints, extrema, cpu_keypoints
+
+    # (b) the per-trio describe path.
+    port.detect_and_describe_batched(images[:4], cfg, "cuda", device=dev)  # warm-up
+    reset_peak()
+    zero()
+    described = port.detect_and_describe_batched(images, cfg, "cuda", device=dev)
+    _sync(torch, dev)
+    describe_launches = counts()
+    describe_peak = peak_gib()
+    same = fields_equal(described, port.detect_and_describe_batched(images, cfg, "separable",
+                                                                    device=dev))
+    cpu_described = port.detect_and_describe_batched(first, cfg, "separable", device="cpu")
+    agreement, _, got, both = against_cpu(described, cpu_described)
+    dtheta = (got.theta[both] - cpu_described.theta[both]).abs()
+    dtheta = torch.minimum(dtheta, 6.2831855 - dtheta)
+    p99_theta = torch.quantile(dtheta.double(), 0.99).item()
+    close = dtheta <= P99_THETA
+    cosine = (got.descriptor[both][close] * cpu_described.descriptor[both][close]).sum(-1)
+    stacks = frontend.build_scale_space(images, cfg, "cuda", device=dev)
+    dogs = frontend.build_dog(stacks)
+    _, selected = frontend._select_candidates(dogs, cfg, None)
+    keypoints_list = frontend._refine_per_octave(dogs, selected, cfg)
+    del dogs, selected
+    recorded = []
+
+    def recording(stacks, table, ys, xs):
+        recorded.append((table, ys, xs))
+        return window_sample_pair(stacks, table, ys, xs)
+
+    describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
+    _require(len(recorded) == 2, f"per-trio describe: {len(recorded)} stages sampled")
+    sample_err = 0.0
+    for table, ys, xs in recorded:
+        got_s = window_sample_pair(stacks, table, ys, xs)
+        want_s = window_sample_pair_reference(stacks, table, ys, xs)
+        sample_err = max(sample_err, *((g - w).abs().max().item() for g, w in zip(got_s, want_s)))
+    shapes = [tuple(r[1].shape) for r in recorded]
+    del stacks, keypoints_list, recorded
+    describe_ms = _host_ms(
+        torch, lambda: port.detect_and_describe_batched(images, cfg, "cuda", device=dev), 3, dev
+    )
+    _say(
+        f"per-trio describe (b): detect_and_describe_batched(blur='cuda') {shape}: launches "
+        f"K1/K2/K3 {describe_launches} (expected {(0, 2, n_blurs)}); every field equal to "
+        f"blur='separable' on the same device {same}; valid descriptors "
+        f"{int(described.valid.sum())}; against device='cpu' on the first {cpu_frames} frames: "
+        f"slot agreement {agreement:.6f}, theta diff p99 {p99_theta:.3g} rad, min cosine "
+        f"{cosine.min().item():.7f}; K2 vs plain on this path's slots {shapes}: max abs diff "
+        f"{sample_err:.3g}"
+    )
+    _say(
+        f"timing per-trio describe (b): {describe_ms:.2f} ms per {batch}-frame batch, "
+        f"{1e3 * batch / describe_ms:.1f} frames/s, peak device memory {describe_peak:.2f} GiB "
+        f"[{smi}]"
+    )
+    if on_card:
+        _require(describe_launches == (0, 2, n_blurs),
+                 f"per-trio describe: launches {describe_launches}")
+    _require(same, "per-trio describe: blur='cuda' differs from blur='separable'")
+    _require(int(described.valid.sum()) > 0, "per-trio describe: no valid descriptors")
+    _require(bool(torch.isfinite(described.descriptor).all()), "per-trio describe: not finite")
+    _require(agreement >= SLOT_AGREEMENT and p99_theta <= P99_THETA
+             and cosine.min().item() >= MIN_COSINE,
+             "per-trio describe: the card disagrees with the CPU")
+    _require(sample_err <= MAX_ABS_ERR, "per-trio describe: K2 differs from its plain version")
+    del cpu_described, got
+
+    # (e) the data-parallel frontend at world 1, on the same batch.
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_blur")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    initialize_multihost(f"file://{os.path.join(work, 'store')}", 1, 0,
+                         backend="nccl" if on_card else "gloo",
+                         timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device_type=dev.type)
+        detect_and_describe_data_parallel(images_cpu[:4], cfg, mesh, blur="cuda")  # warm-up
+        _sync(torch, dev)
+        zero()
+        sharded = detect_and_describe_data_parallel(images_cpu, cfg, mesh, blur="cuda")
+        _sync(torch, dev)
+        shard_launches = counts()
+        shard_same = fields_equal(sharded, described)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    _say(
+        f"per-trio sharded (e): detect_and_describe_data_parallel(blur='cuda') at world 1 "
+        f"({backend}) on {shape}: launches K1/K2/K3 {shard_launches} (expected "
+        f"{(0, 2, n_blurs)}); every field equal to (b) {shard_same}"
+    )
+    if on_card:
+        _require(shard_launches == (0, 2, n_blurs), f"per-trio sharded: launches {shard_launches}")
+    _require(shard_same, "per-trio sharded: the data-parallel frontend differs from (b)")
+    del sharded, described
+
+    # (g) the pooled refinement flags on the fused path.
+    for flag in ("unified_refine", "refine_tail_pool"):
+        flagged = dataclasses.replace(cfg, **{flag: True})
+        zero()
+        pooled, _ = port.detect_batched(images, flagged, device=dev)
+        _sync(torch, dev)
+        pool_launches = counts()
+        again, _ = port.detect_batched(images, flagged, device=dev)
+        rerun_same = fields_equal(pooled, again)
+        moved = int((pooled.reject_reason != fused.reject_reason).sum())
+        cpu_pooled, _ = port.detect_batched(first, flagged, device="cpu")
+        agreement, p99, _, _ = against_cpu(pooled, cpu_pooled)
+        pool_ms = _host_ms(torch, lambda: port.detect_batched(images, flagged, device=dev), 3, dev)
+        _say(
+            f"pooled refinement (g), {flag}: detect_batched {shape} (fused): launches K1/K2/K3 "
+            f"{pool_launches} (expected {(cfg.num_octaves, 0, 0)}); valid "
+            f"{int(pooled.valid.sum())} (per octave {int(fused.valid.sum())}), reject_reason "
+            f"differs from the per-octave path on {moved} slots; rerun bit-equal {rerun_same}; "
+            f"against device='cpu' on the first {cpu_frames} frames: slot agreement "
+            f"{agreement:.6f}, p99 position delta {p99:.3g} px; {pool_ms:.2f} ms per batch "
+            f"(per octave {fused_ms:.2f} ms) [{smi}]"
+        )
+        if on_card:
+            _require(pool_launches == (cfg.num_octaves, 0, 0), f"{flag}: launches {pool_launches}")
+        _require(rerun_same, f"{flag}: two runs differ")
+        _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
+                 f"{flag}: the card disagrees with the CPU")
+        del pooled, again, cpu_pooled
+    del fused, images
+
+    # (c) SLAM on phase 15's gated sequence, blur by blur.
+    recipe = slam_bench_recipe(port, slam_frames, width, height)
+    frames, gt_r, gt_t, k_mat = (recipe[k] for k in ("images", "gt_r", "gt_t", "k_mat"))
+    sift_cfg, slam_cfg = recipe["sift_cfg"], recipe["slam_cfg"]
+    track = dict(reassoc_window=recipe["reassoc_window"], frontend_chunk=SLAM_CHUNK,
+                 **recipe["solved"])
+    per_chunk = _blur_count(sift_cfg)
+    chunks = -(-slam_frames // SLAM_CHUNK)
+
+    def slam(blur):
+        return port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur=blur,
+                                         device=dev, **track)
+
+    slam("cuda")  # warm-up
+    _sync(torch, dev)
+    zero()
+    t0 = time.perf_counter()
+    result = slam("cuda")
+    seconds = time.perf_counter() - t0  # the result is host numpy: synchronised
+    slam_launches = counts()
+    sep = slam("separable")
+    slam_same = (np.array_equal(result.rotations, sep.rotations)
+                 and np.array_equal(result.translations, sep.translations))
+    ate = port.evaluate_ate(result, gt_r, gt_t, device=dev)
+    pixels, visible, _ = port.build_tracks_from_images(frames, sift_cfg, k_mat, blur="cuda",
+                                                       device=dev, **track)
+    ate_card = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, slam_cfg, device=dev),
+                                 gt_r, gt_t, device=dev)
+    ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, slam_cfg, device="cpu"),
+                                gt_r, gt_t, device="cpu")
+    expected = (0, 2 * chunks, per_chunk * chunks)
+    _say(
+        f"per-trio SLAM (c): run_slam_from_images(blur='cuda') on phase 15's {slam_frames} x "
+        f"{height}x{width} sequence, {SLAM_MATCH_GATE_PX:g} px gate, {SLAM_MAX_TRACKS} tracks: "
+        f"launches K1/K2/K3 {slam_launches} (expected {expected}: {chunks} chunks x "
+        f"{per_chunk} blurs), trajectory bit-equal to blur='separable' {slam_same}, valid "
+        f"landmarks {int(result.landmark_valid.sum())} of {visible.shape[1]} tracks, ATE "
+        f"{ate:.4f}; run_slam on these tracks: ATE {ate_card:.4f} on the card, {ate_cpu:.4f} "
+        f"with device='cpu' (bars: < {SLAM_REF_ATE} and within {SLAM_ATE_GAP}); "
+        f"{1e3 * seconds:.1f} ms, {slam_frames / seconds:.2f} frames/s [{smi}]"
+    )
+    if on_card:
+        _require(slam_launches == expected, f"per-trio SLAM: launches {slam_launches}")
+    _require(slam_same, "per-trio SLAM: blur='cuda' differs from blur='separable'")
+    _require(bool(np.isfinite(result.rotations).all() & np.isfinite(result.translations).all()),
+             "per-trio SLAM: the trajectory is not finite")
+    _require(max(ate_card, ate_cpu) < SLAM_REF_ATE and abs(ate_card - ate_cpu) < SLAM_ATE_GAP,
+             "per-trio SLAM: the gated sequence is not solved on the card and the CPU alike")
+
+    # (d) streaming over the same frames.
+    sess = port.SlamSession(k_mat, sift_cfg, slam_cfg, blur="cuda",
+                            reassoc_window=recipe["reassoc_window"], device=dev,
+                            **recipe["solved"])
+    zero()
+    for image in frames:
+        sess.add_frame(image)
+    streamed = sess.finalize()
+    stream_launches = counts()
+    stream_same = (np.array_equal(streamed.rotations, result.rotations)
+                   and np.array_equal(streamed.translations, result.translations))
+    start, win = 2, slam_cfg.ba_interval
+    steps = sum(1 for t in range(1, slam_frames + 1) if t >= start + win and (t - start) % win == 0)
+    calls = steps + ((slam_frames - start) % win != 0)
+    expected = (0, 2 * calls, per_chunk * calls)
+    _say(
+        f"per-trio streaming (d): SlamSession(blur='cuda') over the same frames: launches "
+        f"K1/K2/K3 {stream_launches} (expected {expected}), bit-equal to (c) {stream_same}"
+    )
+    if on_card:
+        _require(stream_launches == expected, f"per-trio streaming: launches {stream_launches}")
+    _require(stream_same, "per-trio streaming: the result differs from the batch run's")
+    del frames, pixels, visible
+
+    # (f) evaluate --blur pallas on phase 16's 40-frame TUM cut.
+    argv, _, _ = write_rehearsal_sequence("tum", work, surface_frames, size)
+    solved = ["--max-frames", str(solved_frames), "--match-gate", f"{SLAM_MATCH_GATE_PX:g}",
+              "--reassoc", "2", "--max-tracks", str(SLAM_MAX_TRACKS)]
+    card = [] if on_card else ["--device", "cpu"]
+    runs = {}
+    for name, flags in (("pallas", ["--blur", "pallas", *card]),
+                        ("cuda", ["--blur", "cuda", *card]),
+                        ("cpu", ["--blur", "separable", "--device", "cpu"])):
+        traj = os.path.join(work, f"{name}.txt")
+        zero()
+        rc, text = _quiet(evaluate.main, argv + solved + flags + ["--out-traj", traj])
+        _require(rc == 0, f"evaluate --blur {name}: exit code {rc}")
+        metrics = json.loads(text.strip().splitlines()[-1])
+        runs[name] = (counts(), metrics, read_tum_trajectory(traj))
+    eval_launches, metrics, traj_pallas = runs["pallas"]
+    traj_same = all(np.array_equal(a, b) for a, b in zip(traj_pallas, runs["cuda"][2]))
+    cpu_metrics = runs["cpu"][1]
+    eval_chunks = -(-solved_frames // SLAM_CHUNK)
+    eval_blurs = _blur_count(port.SiftConfig(num_octaves=4))  # evaluate's 4 octaves x 3 scales
+    expected = (0, 2 * eval_chunks, eval_blurs * eval_chunks)
+    _say(
+        f"per-trio evaluate (f): evaluate --blur pallas {' '.join(solved)} on the TUM rehearsal: "
+        f"launches K1/K2/K3 {eval_launches} (expected {expected}); trajectory equal to --blur "
+        f"cuda {traj_same}; {metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, SLAM "
+        f"{metrics['slam_frames_per_s']} frames/s; --device cpu --blur separable: "
+        f"{cpu_metrics['landmarks']} landmarks, ATE {cpu_metrics['ate_rmse']} (bars: < "
+        f"{SLAM_REF_ATE} and within {SLAM_ATE_GAP}) [{smi}]"
+    )
+    if on_card:
+        _require(eval_launches == expected, f"per-trio evaluate: launches {eval_launches}")
+    _require(traj_same, "per-trio evaluate: --blur pallas differs from --blur cuda")
+    _require(metrics["frames"] == cpu_metrics["frames"] == solved_frames,
+             "per-trio evaluate: frame counts differ")
+    _require(max(metrics["ate_rmse"], cpu_metrics["ate_rmse"]) < SLAM_REF_ATE
+             and abs(metrics["ate_rmse"] - cpu_metrics["ate_rmse"]) < SLAM_ATE_GAP,
+             "per-trio evaluate: the card and the CPU do not both solve the cut")
+    shutil.rmtree(work, ignore_errors=True)
+    return tuple(total), sample_err
 
 
 def main() -> int:
@@ -2322,7 +2759,7 @@ def main() -> int:
     del per_octave, per_octave_plain
 
     # --- 8. the scale-space path -----------------------------------------------
-    n_blurs = cfg.scales_per_octave_total + (cfg.scales_per_octave_total - 1) * (cfg.num_octaves - 1)
+    n_blurs = _blur_count(cfg)
     build_scale_space(images[:4], cfg, blur="cuda")  # warm-up
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
     scale_space = build_scale_space(images, cfg, blur="cuda")
@@ -2581,6 +3018,8 @@ def main() -> int:
         torch, port, smi, device, slam_refs
     )
     max_err, sample_err = max(max_err, shard_octave_err), max(sample_err, shard_sample_err)
+    blur_path_launches, blur_path_sample_err = _phase_blur_paths(torch, port, smi, device)
+    sample_err = max(sample_err, blur_path_sample_err)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -2592,7 +3031,8 @@ def main() -> int:
                 "source": CSRC + "octave.cu",
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
-                + stream_launches[0] + surface_launches[0] + shard_launches[0],
+                + stream_launches[0] + surface_launches[0] + shard_launches[0]
+                + blur_path_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -2606,7 +3046,8 @@ def main() -> int:
                 "source": CSRC + "describe.cu",
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
-                + stream_launches[1] + surface_launches[1] + shard_launches[1],
+                + stream_launches[1] + surface_launches[1] + shard_launches[1]
+                + blur_path_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -2620,7 +3061,7 @@ def main() -> int:
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
-                + surface_launches[2] + shard_launches[2],
+                + surface_launches[2] + shard_launches[2] + blur_path_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

@@ -10,12 +10,14 @@ carries on on the CPU by itself.
 
 ``--blur`` names the scale-space path: ``fused`` (the default, the main
 path: one octave kernel launch per octave, the Gaussian stacks kept),
-``cuda`` (the stand-alone blur kernel, one launch per blurred scale, the
-counterpart of the JAX package's ``pallas``), ``separable`` (the plain tap
-loop), ``matmul`` (banded matrix products, TF32 refused) and ``exact``
-(the reference's 2-D accumulation order). ``--float64`` is the CPU in
-float64, for ``exact``, ``separable`` or ``matmul``; the kernels are
-float32 only, so with ``fused`` or ``cuda`` it exits with a message.
+``cuda`` or ``pallas`` (the stand-alone blur kernel, one launch per blurred
+scale; ``pallas`` is the JAX package's name for it), ``separable`` (the
+plain tap loop), ``matmul`` (banded matrix products, TF32 refused) and
+``exact`` (the reference's 2-D accumulation order). Detection is
+``detect_from_dog``, so ``SiftConfig``'s pooled-refinement flags act here as
+in the JAX package's CLI. ``--float64`` is the CPU in float64, for
+``exact``, ``separable`` or ``matmul``; the kernels are float32 only, so
+with ``fused``, ``cuda`` or ``pallas`` it exits with a message.
 
 Usage:
     python -m sift_scale_space_extrema_detection_tpu_torch.cli IMAGE [-o OUTDIR]
@@ -32,7 +34,7 @@ import time
 
 import numpy as np
 
-KERNEL_BLURS = ("fused", "cuda")
+KERNEL_BLURS = ("fused", "cuda", "pallas")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,9 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--blur",
         default="fused",
-        choices=["fused", "cuda", "separable", "matmul", "exact"],
-        help="fused is the whole-octave CUDA kernel (the main path); cuda the "
-        "stand-alone blur kernel; separable, matmul and exact are plain PyTorch",
+        choices=["fused", "cuda", "pallas", "separable", "matmul", "exact"],
+        help="fused is the whole-octave CUDA kernel (the main path); cuda and "
+        "pallas the stand-alone blur kernel; separable, matmul and exact are "
+        "plain PyTorch",
     )
     p.add_argument(
         "--float64",
@@ -119,7 +122,7 @@ def main(argv=None) -> int:
 
     from . import SiftConfig
     from .core.image import load_image_gray
-    from .core.types import REJECT_REASON_NAMES, concat_keypoints
+    from .core.types import REJECT_REASON_NAMES, split_keypoints
     from .models import frontend
     from .utils import visualize as vis
 
@@ -145,14 +148,17 @@ def main(argv=None) -> int:
         scale_space = frontend.build_scale_space(image, cfg, args.blur, device=device)
         dog = frontend.build_dog(scale_space)
         masks = None
-    per_octave, extrema = frontend.detect_octaves(dog, cfg, masks)
-    keypoints = concat_keypoints(per_octave)
+    keypoints, extrema = frontend.detect_from_dog(dog, cfg, masks)
     described = None
     if args.descriptors:
-        # Octave by octave on the keypoints detection refined: two
-        # window-sampling launches per octave.
+        # Octave by octave on the keypoints detection refined, sliced at
+        # each octave's refinement capacity: two window-sampling launches
+        # per octave.
         from .ops.descriptor import concat_described, describe_octave
 
+        per_octave = split_keypoints(
+            keypoints, [cfg.refine_capacity(o) for o in range(len(dog))]
+        )
         described = concat_described(
             [
                 describe_octave(stack, kp, octave, cfg)

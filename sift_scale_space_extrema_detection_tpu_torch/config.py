@@ -44,8 +44,12 @@ class SiftConfig:
     # ``max(64, int(slots * schedule[min(k-1, len-1)]))`` still-active
     # slots keep iterating; the rest keep REJECT_MAX_ITERATIONS.
     refine_compaction_schedule: tuple = (0.35, 0.15, 0.08)
-    # Cross-octave refinement variants of the JAX package; off by default
-    # and not implemented by the port (the per-octave path always runs).
+    # Cross-octave refinement (``ops/refine.py::refine_keypoints_multi``),
+    # off by default: ``unified_refine`` refines every octave's candidates
+    # as one pool, ``refine_tail_pool`` octave 0 alone and the rest as one
+    # pool. Before Newton iteration 1 a pool keeps its first
+    # ``max(256, int(slots * refine_pool_compaction))`` valid slots. Detection
+    # honours them; the describe paths refine per octave, as in JAX.
     unified_refine: bool = False
     refine_pool_compaction: float = 0.7
     refine_tail_pool: bool = False

@@ -105,3 +105,12 @@ def concat_keypoints(parts: list[Keypoints]) -> Keypoints:
             for f in dataclasses.fields(Keypoints)
         }
     )
+
+
+def split_keypoints(keypoints: Keypoints, sizes: list[int]) -> list[Keypoints]:
+    """The inverse of :func:`concat_keypoints`: slot segments of ``sizes``."""
+    parts = {
+        f.name: torch.split(getattr(keypoints, f.name), sizes, dim=-1)
+        for f in dataclasses.fields(Keypoints)
+    }
+    return [Keypoints(**{k: v[i] for k, v in parts.items()}) for i in range(len(sizes))]

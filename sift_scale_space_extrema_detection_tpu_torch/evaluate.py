@@ -10,15 +10,18 @@ descriptor tracks, PnP, windowed and global BA) on the card unless
 (``sfm/evaluate.py``, float64) and reports ATE/RPE, an exported TUM-format
 trajectory and, as its last line, the metrics as JSON.
 
-The JAX package's ``--blur`` is gone: the port's SLAM frontend is the fused
-octave kernel only. ``--max-tracks`` is new: the JAX package's evaluator
-fixes the track room at 4096, which a long sequence fills.
+``--blur`` takes the JAX package's names (``models/frontend.py``); its
+default is ``fused``, the octave kernel, where the JAX package's is
+``separable``, the scale space blur by blur with per-trio candidate caps
+(``pallas`` and ``cuda`` run that path through the blur kernel).
+``--max-tracks`` is new: the JAX package's evaluator fixes the track room at
+4096, which a long sequence fills.
 
 Usage:
     python -m sift_scale_space_extrema_detection_tpu_torch.evaluate DIR \
         [--format tum|kitti|auto] [--sequence NN] [--max-frames N]
         [--stride K] [--out-traj est.txt] [--octaves N] [--scales N]
-        [--match-gate PX] [--reassoc N] [--max-tracks N] [--device cuda|cpu]
+        [--blur fused|cuda|pallas|separable|matmul|exact] [--match-gate PX] [--reassoc N] [--max-tracks N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -47,6 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capacity", type=int, default=512, help="max keypoints per trio")
     p.add_argument("--match-ratio", type=float, default=0.9)
     p.add_argument("--ba-interval", type=int, default=5)
+    p.add_argument(
+        "--blur", default="fused",
+        choices=["fused", "cuda", "pallas", "separable", "matmul", "exact"],
+        help="the frontend's scale space: fused is the whole-octave CUDA kernel "
+        "(the default); cuda and pallas the blur kernel blur by blur; separable "
+        "(the JAX package's default), matmul and exact plain PyTorch",
+    )
     p.add_argument(
         "--upright", action="store_true",
         help="skip orientation assignment (video: inter-frame rotation "
@@ -178,6 +188,7 @@ def main(argv=None) -> int:
         sift_cfg,
         slam_cfg,
         match_ratio=args.match_ratio,
+        blur=args.blur,
         reassoc_window=args.reassoc,
         max_match_px=args.match_gate,
         max_tracks=args.max_tracks,

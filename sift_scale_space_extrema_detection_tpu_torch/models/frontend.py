@@ -1,16 +1,26 @@
 """End-to-end SIFT frontend: scale space → DoG → extrema → refinement →
 orientations and descriptors.
 
-The port of the JAX package's ``models/frontend.py`` with ``blur="fused"``:
-every octave goes through the fused octave kernel
-(``ops/kernels/octave.py``), which emits the DoG planes, the next octave's
-seed, the packed extrema masks and, for the describe path, the Gaussian
-stack; selection, Newton refinement and the describe stages' histogram math
-are tensor code over the whole batch, and the describe stages sample
-through the window-sampling kernel (``ops/kernels/describe.py``). The
-entry points are fused-only. :func:`build_scale_space` is the scale space
-built blur by blur, with the stand-alone blur kernel
-(``ops/kernels/blur.py``) as one of its strategies.
+The port of the JAX package's ``models/frontend.py``. Its entry points take
+the JAX package's ``blur`` argument:
+
+- ``blur="fused"`` (the port's default, its main path): every octave goes
+  through the fused octave kernel (``ops/kernels/octave.py``), which emits
+  the DoG planes, the next octave's seed, the packed extrema masks and, for
+  the describe path, the Gaussian stack; candidates are capped per octave
+  (:func:`~..ops.extrema.select_refine_candidates`).
+- any name of :data:`BLUR_STRATEGIES`: the scale space blur by blur
+  (:func:`build_scale_space`; ``"cuda"`` and ``"pallas"`` launch the
+  stand-alone blur kernel, ``ops/kernels/blur.py``, once per blurred
+  scale), the DoG, then each trio scanned and capped on its own
+  (:func:`~..ops.extrema.find_extrema`) and the trios compacted
+  (:func:`~..ops.extrema.compact_extrema`): the JAX package's
+  ``blur="separable"`` default, where capacity saturates another keypoint
+  set than the per-octave cap's.
+
+Selection, Newton refinement and the describe stages' histogram math are
+tensor code over the whole batch, and the describe stages sample through
+the window-sampling kernel (``ops/kernels/describe.py``).
 
 The entry points (:func:`detect`, :func:`detect_batched`,
 :func:`detect_and_describe`, :func:`detect_and_describe_batched`,
@@ -27,7 +37,7 @@ import torch
 
 from ..config import SiftConfig
 from ..core.device import Device, on_device
-from ..core.types import Extrema, Keypoints, concat_keypoints
+from ..core.types import Extrema, Keypoints, concat_keypoints, split_keypoints
 from ..ops.descriptor import (
     DescribedKeypoints,
     concat_described,
@@ -39,21 +49,40 @@ from ..ops.extrema import compact_extrema, find_extrema, select_refine_candidate
 from ..ops.gaussian import blur_exact, blur_matmul, blur_separable
 from ..ops.kernels.blur import blur_fused
 from ..ops.kernels.octave import fused_octave
-from ..ops.refine import refine_keypoints
+from ..ops.refine import refine_keypoints, refine_keypoints_multi
 from ..ops.resize import downsample2x_nn, upsample2x_nn
 
-# ``"cuda"``, the default, is the stand-alone blur kernel, the counterpart of
-# the JAX package's ``"pallas"`` strategy (for a CPU tensor it runs the tap
-# loop); ``"separable"`` is the plain tap loop on any device, the kernel's
-# reference; ``"matmul"`` is the banded matrix product (TF32 refused);
-# ``"exact"`` is the full 2-D blur in the reference's accumulation order,
-# for float64 images: the oracle leg.
+# The scale space blur by blur, by name. ``"cuda"`` is the stand-alone blur
+# kernel (for a CPU tensor it runs the tap loop), and ``"pallas"``, the JAX
+# package's name for its blur kernel, is the same entry, so that a JAX
+# command line runs unchanged; ``"separable"`` is the plain tap loop on any
+# device, the kernel's reference and the JAX package's default;
+# ``"matmul"`` is the banded matrix product (TF32 refused); ``"exact"`` is
+# the full 2-D blur in the reference's accumulation order, for float64
+# images: the oracle leg. ``"fused"`` (the whole-octave kernel) is the
+# entry points' fifth name; it builds no scale space blur by blur.
 BLUR_STRATEGIES = {
     "cuda": blur_fused,
+    "pallas": blur_fused,
     "separable": blur_separable,
     "matmul": blur_matmul,
     "exact": blur_exact,
 }
+
+
+def check_blur(blur: str, dtype: torch.dtype | None = None) -> None:
+    """Raise ``ValueError`` for a ``blur`` the entry points do not know, or
+    for the blur kernel's names on a float64 input (the kernels are float32
+    only; such an input is refused, not cast)."""
+    if blur != "fused" and blur not in BLUR_STRATEGIES:
+        raise ValueError(
+            f"unknown blur {blur!r}: one of {['fused', *BLUR_STRATEGIES]}"
+        )
+    if blur in ("cuda", "pallas") and dtype == torch.float64:
+        raise ValueError(
+            f'blur="{blur}" is the float32 blur kernel and the input is float64: '
+            'use blur="exact", "separable" or "matmul"'
+        )
 
 
 def _as_unit_float(images: torch.Tensor) -> torch.Tensor:
@@ -125,8 +154,14 @@ def build_scale_space(
     scale from the 2×-upsampled image with the semigroup offset sigma;
     octaves ≥ 1 seed from the previous octave's scale ``spo`` decimated 2×,
     taken unblurred as scale 0 (background.js:110-143). ``blur`` names one
-    of :data:`BLUR_STRATEGIES`. ``device``: see the module.
+    of :data:`BLUR_STRATEGIES` (else ``ValueError``). ``device``: see the
+    module.
     """
+    if blur not in BLUR_STRATEGIES:
+        raise ValueError(
+            f"build_scale_space: unknown blur {blur!r}: one of {list(BLUR_STRATEGIES)}"
+            + ('; "fused" is build_pyramid_fused' if blur == "fused" else "")
+        )
     blur_fn = BLUR_STRATEGIES[blur]
     octaves: list[torch.Tensor] = []
     base = upsample2x_nn(on_device(images, device)).contiguous()
@@ -149,6 +184,35 @@ def build_dog(scale_space: list[torch.Tensor]) -> list[torch.Tensor]:
     return [difference_of_gaussians(octave) for octave in scale_space]
 
 
+def _select_candidates(dogs, cfg: SiftConfig, masks) -> tuple[list[Extrema], list[Extrema]]:
+    """Per octave, the ``Extrema`` :func:`detect_octaves` returns and the
+    refinement's candidate slots (``refine_capacity(o)`` of them)."""
+    if masks is None:
+        masks = [None] * len(dogs)
+    extrema, selected = [], []
+    for octave, (d, m) in enumerate(zip(dogs, masks)):
+        capacity = cfg.refine_capacity(octave)
+        if m is None:
+            e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
+            sel = compact_extrema(e, capacity)
+        else:
+            e = sel = select_refine_candidates(m, d, cfg, capacity)
+        extrema.append(e)
+        selected.append(sel)
+    return extrema, selected
+
+
+def _refine_per_octave(dogs, selected, cfg: SiftConfig) -> list[Keypoints]:
+    return [refine_keypoints(d, sel, o, cfg) for o, (d, sel) in enumerate(zip(dogs, selected))]
+
+
+def _refine_pooled(dogs, selected, cfg: SiftConfig, first: int = 0) -> list[Keypoints]:
+    """:func:`~..ops.refine.refine_keypoints_multi` over the octaves from
+    ``first`` on, split back into one ``Keypoints`` per octave."""
+    pooled = refine_keypoints_multi(dogs, selected, cfg, octave_offset=first)
+    return split_keypoints(pooled, [sel.capacity for sel in selected])
+
+
 def detect_octaves(
     dogs: list[torch.Tensor],
     cfg: SiftConfig,
@@ -158,25 +222,30 @@ def detect_octaves(
 
     ``dogs[o]``: ``(B, D, H_o, W_o)``; ``masks[o]``: ``(B, H_o, W_o)``, the
     octave kernel's packed extrema codes, or ``None``: that octave is
-    scanned here (:func:`find_extrema`), in the dtype of its DoG, which is
-    the route of the float64 oracle leg. Returns one ``Keypoints``
-    ``(B, n_o)`` and one ``Extrema`` per octave: with a mask the refinement
-    candidates with the uncapped per-trio counters, without one the
-    per-trio segments (segment ``t`` = slots ``[t·cap, (t+1)·cap)``), of
-    which refinement consumes a compacted copy.
+    scanned here trio by trio (:func:`find_extrema`), in the dtype of its
+    DoG, the route of ``build_scale_space`` and of the float64 oracle leg.
+    Returns one ``Keypoints`` ``(B, refine_capacity(o))`` and one
+    ``Extrema`` per octave: with a mask the refinement candidates with the
+    uncapped per-trio counters, without one the per-trio segments (segment
+    ``t`` = slots ``[t·cap, (t+1)·cap)``), of which refinement consumes a
+    compacted copy.
+
+    Refinement follows the JAX package's ``detect_from_dog``: with
+    ``cfg.unified_refine`` (every DoG of one dtype) all octaves are refined
+    as one pool; else with ``cfg.refine_tail_pool`` and more than two
+    octaves, octave 0 alone and the rest as one pool
+    (:func:`~..ops.refine.refine_keypoints_multi`); else octave by octave.
+    The pools change results only where a pool's capacity overflows.
     """
-    if masks is None:
-        masks = [None] * len(dogs)
-    keypoints, extrema = [], []
-    for octave, (d, m) in enumerate(zip(dogs, masks)):
-        capacity = cfg.refine_capacity(octave)
-        if m is None:
-            e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
-            selected = compact_extrema(e, capacity)
-        else:
-            e = selected = select_refine_candidates(m, d, cfg, capacity)
-        extrema.append(e)
-        keypoints.append(refine_keypoints(d, selected, octave, cfg))
+    extrema, selected = _select_candidates(dogs, cfg, masks)
+    if cfg.unified_refine and len({d.dtype for d in dogs}) == 1:
+        keypoints = _refine_pooled(dogs, selected, cfg)
+    elif cfg.refine_tail_pool and len(dogs) > 2 and len({d.dtype for d in dogs[1:]}) == 1:
+        keypoints = _refine_per_octave(dogs[:1], selected[:1], cfg) + _refine_pooled(
+            dogs[1:], selected[1:], cfg, first=1
+        )
+    else:
+        keypoints = _refine_per_octave(dogs, selected, cfg)
     return keypoints, extrema
 
 
@@ -191,46 +260,66 @@ def detect_from_dog(
     return concat_keypoints(keypoints), extrema
 
 
+def _pyramid(images: torch.Tensor, cfg: SiftConfig, blur: str, emit_scales: bool):
+    """``(dogs, masks, stacks)`` of unit-range images on their device:
+    the fused octave kernel's (``stacks`` only with ``emit_scales``), or
+    the scale space blur by blur with no masks."""
+    if blur == "fused":
+        dogs, masks, *stacks = build_pyramid_fused(
+            images, cfg, emit_scales=emit_scales, device=images.device
+        )
+        return dogs, masks, stacks[0] if stacks else None
+    stacks = build_scale_space(images, cfg, blur, device=images.device)
+    return build_dog(stacks), None, stacks
+
+
 def detect_batched(
-    images: torch.Tensor, cfg: SiftConfig, device: Device = None
+    images: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
 ) -> tuple[Keypoints, list[Extrema]]:
     """Batched detection: ``(B, H, W)`` grayscale → keypoints ``(B, N)``.
 
     uint8/uint16 images are scaled to ``[0, 1]``; float images are taken as
-    they are. ``device``: see the module.
+    they are. ``blur``: ``"fused"`` or a name of :data:`BLUR_STRATEGIES`
+    (see the module; :func:`check_blur`). ``device``: see the module.
     """
-    images = on_device(images, device)
-    dogs, masks = build_pyramid_fused(
-        _as_unit_float(images), cfg, device=images.device
-    )
+    check_blur(blur, images.dtype)
+    images = _as_unit_float(on_device(images, device))
+    dogs, masks, _ = _pyramid(images, cfg, blur, emit_scales=False)
     return detect_from_dog(dogs, cfg, masks)
 
 
 def detect(
-    image: torch.Tensor, cfg: SiftConfig, device: Device = None
+    image: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
 ) -> tuple[Keypoints, list[Extrema]]:
     """Single-image detection: ``(H, W)`` grayscale → keypoints ``(N,)``."""
-    keypoints, extrema = detect_batched(image[None], cfg, device=device)
+    keypoints, extrema = detect_batched(image[None], cfg, blur, device=device)
     return _first(keypoints), [_first(e) for e in extrema]
 
 
 def detect_and_describe_batched(
-    images: torch.Tensor, cfg: SiftConfig, device: Device = None
+    images: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
 ) -> DescribedKeypoints:
     """Batched frontend: ``(B, H, W)`` grayscale → oriented keypoints with
     128-D descriptors, fields ``(B, N)``.
 
-    Detection as in :func:`detect_batched`, with the Gaussian stacks kept;
+    Detection as in :func:`detect_batched` with the Gaussian stacks kept,
+    but refined octave by octave whatever ``cfg.unified_refine`` and
+    ``cfg.refine_tail_pool`` say, as the JAX package's describe paths do;
     then one compacting describe pass over the whole batch
     (``ops/descriptor.py::describe_compact``), or with
     ``cfg.compact_describe`` off the per-octave path over every slot.
-    ``device``: see the module.
+    ``blur`` and ``device``: see :func:`detect_batched`.
     """
-    images = on_device(images, device)
-    dogs, masks, stacks = build_pyramid_fused(
-        _as_unit_float(images), cfg, emit_scales=True, device=images.device
-    )
-    keypoints, _ = detect_octaves(dogs, cfg, masks)
+    check_blur(blur, images.dtype)
+    images = _as_unit_float(on_device(images, device))
+    dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
+    _, selected = _select_candidates(dogs, cfg, masks)
+    keypoints = _refine_per_octave(dogs, selected, cfg)
+    if stacks[0].dtype == torch.float64:
+        # The describe stages are float32 (the sampling kernel's contract):
+        # a float64 scale space is described from its float32 rounding.
+        stacks = [s.to(torch.float32) for s in stacks]
+        keypoints = [_float32(kp) for kp in keypoints]
     if cfg.compact_describe:
         return describe_compact(stacks, keypoints, cfg)
     return concat_described(
@@ -242,11 +331,17 @@ def detect_and_describe_batched(
 
 
 def detect_and_describe(
-    image: torch.Tensor, cfg: SiftConfig, device: Device = None
+    image: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
 ) -> DescribedKeypoints:
     """Single-image frontend: ``(H, W)`` grayscale → described keypoints
     ``(N,)``, as a batch of one."""
-    return _first(detect_and_describe_batched(image[None], cfg, device=device))
+    return _first(detect_and_describe_batched(image[None], cfg, blur, device=device))
+
+
+def _float32(keypoints: Keypoints) -> Keypoints:
+    return Keypoints(**{
+        k: v.to(torch.float32) if v.is_floating_point() else v for k, v in vars(keypoints).items()
+    })
 
 
 def _first(result):

@@ -1002,11 +1002,14 @@ def describe_frames(
     profile=None,
     device: Device = None,
     mesh=None,
+    blur: str = "fused",
 ):
     """``detect_and_describe_batched`` over (F, H, W) frames (uint8,
     uint16, or float in [0, 1]) in chunks of ``frontend_chunk`` frames,
     which bounds peak device memory; the chunks' results concatenated on
-    the device. ``device``: see ``core/device.py``. With a ``mesh`` a chunk
+    the device. ``blur``: the frontend's (``models/frontend.py``; the JAX
+    package's default is ``"separable"``, the port's the fused octave
+    kernel). ``device``: see ``core/device.py``. With a ``mesh`` a chunk
     is ``frontend_chunk`` frames a rank, split over the ranks by
     ``detect_and_describe_data_parallel`` (which pads a chunk to a multiple
     of the world size), and every rank gets every frame's result.
@@ -1033,9 +1036,9 @@ def describe_frames(
             if mesh is None:
                 part = part.to(target)
         if mesh is None:
-            out = detect_and_describe_batched(part, sift_cfg, device=target)
+            out = detect_and_describe_batched(part, sift_cfg, blur, device=target)
         else:
-            out = detect_and_describe_data_parallel(part, sift_cfg, mesh)
+            out = detect_and_describe_data_parallel(part, sift_cfg, mesh, blur)
         if profile is not None:
             # Attribution-only sync: splits device compute out of the fetch
             # stage (production runs stay asynchronous until the fetch).
@@ -1068,6 +1071,7 @@ def build_tracks_from_images(
     loop_topk: int = 8,
     device: Device = None,
     mesh=None,
+    blur: str = "fused",
 ):
     """Frontend + sequential descriptor matching → landmark tracks.
 
@@ -1092,11 +1096,11 @@ def build_tracks_from_images(
     data-parallel and the window and loop matching query-sharded over its
     ranks; the tracks are those of the run without one.
 
-    The frontend is :func:`describe_frames`, the association
-    :func:`build_tracks_from_described`.
+    The frontend is :func:`describe_frames` (with ``blur``), the
+    association :func:`build_tracks_from_described`.
     """
     target = _target(device, mesh)
-    described = describe_frames(images, sift_cfg, frontend_chunk, profile, target, mesh)
+    described = describe_frames(images, sift_cfg, frontend_chunk, profile, target, mesh, blur)
     return build_tracks_from_described(
         described, k_mat, match_ratio=match_ratio, max_tracks=max_tracks,
         ransac_threshold_px=ransac_threshold_px, reassoc_window=reassoc_window,
@@ -1437,6 +1441,7 @@ def run_slam_from_images(
     device: Device = None,
     dtype: torch.dtype = torch.float32,
     max_tracks: int = 4096,
+    blur: str = "fused",
     **slam_kwargs,
 ) -> SlamResult:
     """Full visual SLAM: pixels in → trajectory + map out.
@@ -1450,7 +1455,7 @@ def run_slam_from_images(
     (checkpointing etc.). ``device``: see ``core/device.py``; ``dtype``: the
     back end's (see the module). ``max_tracks`` is the tracking's room (the
     JAX package fixes it at its default, 4096); once it is full, no new
-    track opens.
+    track opens. ``blur``: the frontend's (:func:`describe_frames`).
     """
     target = _target(device, mesh)
     pixels, visible, _ = build_tracks_from_images(
@@ -1458,6 +1463,7 @@ def run_slam_from_images(
         reassoc_window=reassoc_window, frontend_chunk=frontend_chunk,
         profile=profile, max_match_px=max_match_px, loop_stride=loop_stride,
         loop_query_stride=loop_query_stride, loop_topk=loop_topk, device=target, mesh=mesh,
+        blur=blur,
     )
     return run_slam(
         pixels, visible, k_mat, slam_cfg, mesh=mesh, profile=profile, device=target,

@@ -64,7 +64,8 @@ class SlamSession:
 
     ``device``: see ``core/device.py`` (the card, or an error where there
     is none, unless ``device="cpu"``); ``dtype``: the back end's
-    (``models/slam.py``). ``mesh``: a ``DeviceMesh`` of ``parallel/``; each
+    (``models/slam.py``). ``blur``: the frontend's (``models/frontend.py``),
+    as ``run_slam_from_images`` takes it. ``mesh``: a ``DeviceMesh`` of ``parallel/``; each
     step's frontend, window matching and BA then run over its ranks, as the
     batch run's do (``models/slam.py``), and every rank steps the same
     session on the same frames.
@@ -76,6 +77,7 @@ class SlamSession:
         sift_cfg: SiftConfig | None = None,
         slam_cfg: SlamConfig | None = None,
         *,
+        blur: str = "fused",
         match_ratio: float = 0.9,
         max_tracks: int = 4096,
         reassoc_window: int = 2,
@@ -92,6 +94,7 @@ class SlamSession:
         self.k_mat = np.asarray(k_mat)
         self.sift_cfg = sift_cfg or SiftConfig()
         self.slam_cfg = slam_cfg or SlamConfig()
+        self.blur = blur
         self.match_ratio = match_ratio
         self.max_tracks = max_tracks
         self.reassoc_window = reassoc_window
@@ -198,9 +201,10 @@ class SlamSession:
         images = torch.from_numpy(np.ascontiguousarray(frames, _upload_dtype(frames)))
         if self.mesh is None:
             described = detect_and_describe_batched(images.to(self.device), self.sift_cfg,
-                                                     device=self.device)
+                                                     self.blur, device=self.device)
         else:
-            described = detect_and_describe_data_parallel(images, self.sift_cfg, self.mesh)
+            described = detect_and_describe_data_parallel(images, self.sift_cfg, self.mesh,
+                                                          self.blur)
         f0 = self._frames_done  # global index of the first new frame
         valid_new = described.valid.cpu().numpy()
         xs_new = described.abs_x.cpu().numpy()

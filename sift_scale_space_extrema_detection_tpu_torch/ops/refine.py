@@ -88,21 +88,32 @@ def _ladder_caps(cfg: SiftConfig, n_slots: int) -> list[int]:
     ]
 
 
+def _clip_interior(x: torch.Tensor, extent) -> torch.Tensor:
+    """``x`` clipped to ``[1, extent - 2]``; ``extent`` an int or a tensor
+    of one extent per slot."""
+    if isinstance(extent, int):
+        return x.clamp(1, extent - 2).long()
+    return torch.minimum(x.clamp(min=1), extent - 2).long()
+
+
 def _step(dog_flat, base, d_scales, h, w, st, cfg):
     """One Newton iteration for every slot; returns the updated state.
 
-    Only slots with ``st["run"]`` change. Positions of the others are
-    clipped into the interior so every gather index stays legal.
+    ``h``/``w``: the plane's extent, an int, or an int64 tensor of one
+    extent per slot where the slots come from several octaves. Only slots
+    with ``st["run"]`` change. Positions of the others are clipped into the
+    interior so every gather index stays legal.
     """
     s, m, n = st["s"], st["m"], st["n"]
     dtype = dog_flat.dtype
     sc = s.clamp(1, d_scales - 2).long()
-    mc = m.clamp(1, h - 2).long()
-    nc = n.clamp(1, w - 2).long()
+    mc = _clip_interior(m, h)
+    nc = _clip_interior(n, w)
+    hc, wc = (h, w) if isinstance(h, int) else (h[:, None], w[:, None])
     ds_, dm_, dn_ = _cube_offsets(dog_flat.device)
     idx = (
         base[:, None]
-        + ((sc[:, None] + ds_) * h + (mc[:, None] + dm_)) * w
+        + ((sc[:, None] + ds_) * hc + (mc[:, None] + dm_)) * wc
         + (nc[:, None] + dn_)
     )
     cube = dog_flat[idx]
@@ -210,6 +221,58 @@ def _step(dog_flat, base, d_scales, h, w, st, cfg):
     return out
 
 
+def _first_active(active: torch.Tensor, shape, cap: int) -> torch.Tensor:
+    """The first ``cap`` set slots of each image's row of ``active`` (flat,
+    ``shape = (B, n)``), in slot order."""
+    active = active.reshape(shape)
+    rank = active.cumsum(dim=1, dtype=torch.int32)
+    return (active & (rank <= cap)).reshape(-1)
+
+
+def _iterate(dog_flat, base, d_scales, h, w, st, cfg, shape, pool_cap=None):
+    """Newton iteration 1, then the compaction ladder, over a state of
+    ``shape = (B, n)`` slots. Before iteration 1 only the first
+    ``pool_cap`` valid slots of each image go on when ``pool_cap`` is given
+    and below ``n``; before each later iteration only the first
+    :func:`_ladder_caps` still-active slots the previous level admitted.
+    The rest keep REJECT_MAX_ITERATIONS: the outputs of the JAX package's
+    compactions, from one running count per level."""
+    live = torch.ones_like(st["run"])  # slots the ladder still admits
+    if pool_cap is not None and pool_cap < shape[1]:
+        live = st["run"] = _first_active(st["run"], shape, pool_cap)
+    st = _step(dog_flat, base, d_scales, h, w, st, cfg)
+    for cap in _ladder_caps(cfg, shape[1]):
+        live = st["run"] = _first_active(live & ~st["done"], shape, cap)
+        st = _step(dog_flat, base, d_scales, h, w, st, cfg)
+    return st
+
+
+def _initial_state(extrema_list, dtype, delta, sigc) -> dict:
+    """The refinement state of candidate slots ``(B, n)`` concatenated
+    along the slots, flat; ``delta``/``sigc`` one value per slot."""
+
+    def cat(name, to):
+        return torch.cat([getattr(e, name).to(to) for e in extrema_list], dim=1).reshape(-1)
+
+    valid = cat("valid", torch.bool)
+    zero = torch.zeros_like(delta)
+    return dict(
+        s=cat("scale_level", torch.int32),
+        m=cat("y", torch.int32),
+        n=cat("x", torch.int32),
+        value=cat("value", dtype),
+        done=~valid,
+        run=valid,
+        reason=torch.where(valid, REJECT_MAX_ITERATIONS, -1).to(torch.int32),
+        abs_y=zero,
+        abs_x=zero,
+        abs_sigma=zero,
+        omega=zero,
+        delta=delta,
+        sigc=sigc,
+    )
+
+
 def refine_keypoints(
     dog: torch.Tensor, extrema: Extrema, octave: int, cfg: SiftConfig
 ) -> Keypoints:
@@ -225,45 +288,88 @@ def refine_keypoints(
     """
     b, d_scales, h, w = dog.shape
     n_slots = extrema.y.shape[-1]
-    dev = dog.device
     delta, sigma_coeff = _octave_geometry(octave, cfg)
-    image = torch.arange(b, device=dev).repeat_interleave(n_slots)
-    valid = extrema.valid.reshape(-1)
-    zero = torch.zeros(b * n_slots, dtype=dog.dtype, device=dev)
-    st = dict(
-        s=extrema.scale_level.reshape(-1).to(torch.int32),
-        m=extrema.y.reshape(-1).to(torch.int32),
-        n=extrema.x.reshape(-1).to(torch.int32),
-        value=extrema.value.reshape(-1).to(dog.dtype),
-        done=~valid,
-        run=valid,
-        reason=torch.where(valid, REJECT_MAX_ITERATIONS, -1).to(torch.int32),
-        abs_y=zero,
-        abs_x=zero,
-        abs_sigma=zero,
-        omega=zero,
-        delta=torch.full_like(zero, exact_scalar(delta, dog.dtype)),
-        sigc=torch.full_like(zero, exact_scalar(sigma_coeff, dog.dtype)),
+    image = torch.arange(b, device=dog.device).repeat_interleave(n_slots)
+    slot = torch.zeros(b * n_slots, dtype=dog.dtype, device=dog.device)
+    st = _initial_state(
+        [extrema],
+        dog.dtype,
+        torch.full_like(slot, exact_scalar(delta, dog.dtype)),
+        torch.full_like(slot, exact_scalar(sigma_coeff, dog.dtype)),
     )
-    dog_flat = dog.reshape(-1)
     base = image * (d_scales * h * w)
-    st = _step(dog_flat, base, d_scales, h, w, st, cfg)
-    live = torch.ones_like(valid)  # slots the ladder still admits
-    for cap in _ladder_caps(cfg, n_slots):
-        active = (live & ~st["done"]).reshape(b, n_slots)
-        rank = active.cumsum(dim=1, dtype=torch.int32)
-        live = (active & (rank <= cap)).reshape(-1)
-        st["run"] = live
-        st = _step(dog_flat, base, d_scales, h, w, st, cfg)
-
+    st = _iterate(dog.reshape(-1), base, d_scales, h, w, st, cfg, (b, n_slots))
     return _keypoints_from_state(st, octave, (b, n_slots))
 
 
-def _keypoints_from_state(st, octave: int, shape) -> Keypoints:
-    """The final refinement state as ``Keypoints`` of the given shape."""
+def refine_keypoints_multi(
+    dogs: list[torch.Tensor],
+    extrema_list: list[Extrema],
+    cfg: SiftConfig,
+    octave_offset: int = 0,
+) -> Keypoints:
+    """One refinement pass over every octave's candidate slots.
+
+    The JAX package's ``refine_keypoints_multi`` (``cfg.unified_refine``,
+    and ``cfg.refine_tail_pool`` with ``octave_offset=1``): ``dogs[i]``
+    ``(B, D, H_i, W_i)`` of octave ``i + octave_offset``, all of one dtype
+    and depth; ``extrema_list[i]`` fields ``(B, n_i)``. Each image's slots
+    are one state, octave after octave; every slot carries its octave's
+    plane extent, offset into the concatenated flat DoG, ``delta`` and
+    sigma constant. Before Newton iteration 1 the first
+    ``min(n, max(256, int(n · refine_pool_compaction)))`` valid slots of
+    each image go on (``n = Σ n_i``), and the ladder's caps are taken on
+    ``n``; the rest keep REJECT_MAX_ITERATIONS. Where nothing overflows,
+    the result is ``concat_keypoints`` of :func:`refine_keypoints` per
+    octave; keypoints ``(B, n)`` in that slot order.
+    """
+    if len({(d.dtype, d.shape[:2]) for d in dogs}) != 1:
+        raise ValueError("refine_keypoints_multi: the DoGs differ in dtype, batch or depth")
+    b, d_scales = dogs[0].shape[:2]
+    dtype, dev = dogs[0].dtype, dogs[0].device
+    bases, hs, ws, deltas, sigcs, octs = [], [], [], [], [], []
+    flat_off = 0
+    for i, (d, e) in enumerate(zip(dogs, extrema_list)):
+        octave = i + octave_offset
+        h, w = d.shape[-2:]
+        n = e.y.shape[-1]
+        delta, sigc = _octave_geometry(octave, cfg)
+
+        def per_slot(value, dt):
+            return torch.full((b, n), value, dtype=dt, device=dev)
+
+        image = torch.arange(b, device=dev)[:, None].expand(b, n)
+        bases.append(flat_off + image * (d_scales * h * w))
+        hs.append(per_slot(h, torch.int64))
+        ws.append(per_slot(w, torch.int64))
+        deltas.append(per_slot(exact_scalar(delta, dtype), dtype))
+        sigcs.append(per_slot(exact_scalar(sigc, dtype), dtype))
+        octs.append(per_slot(octave, torch.int32))
+        flat_off += d.numel()
+
+    def cat(parts):
+        return torch.cat(parts, dim=1).reshape(-1)
+
+    n_slots = sum(e.y.shape[-1] for e in extrema_list)
+    pool_cap = min(n_slots, max(256, int(n_slots * cfg.refine_pool_compaction)))
+    st = _initial_state(extrema_list, dtype, cat(deltas), cat(sigcs))
+    dog_flat = torch.cat([d.reshape(-1) for d in dogs])
+    st = _iterate(
+        dog_flat, cat(bases), d_scales, cat(hs), cat(ws), st, cfg, (b, n_slots), pool_cap
+    )
+    return _keypoints_from_state(st, cat(octs), (b, n_slots))
+
+
+def _keypoints_from_state(st, octave, shape) -> Keypoints:
+    """The final refinement state as ``Keypoints`` of the given shape;
+    ``octave``: an int, or one octave per slot."""
     reason = st["reason"].reshape(shape)
     return Keypoints(
-        octave=torch.full_like(reason, octave),
+        octave=(
+            torch.full_like(reason, octave)
+            if isinstance(octave, int)
+            else octave.reshape(shape).to(reason.dtype)
+        ),
         scale_level=st["s"].reshape(shape),
         local_y=st["m"].reshape(shape),
         local_x=st["n"].reshape(shape),

@@ -89,19 +89,20 @@ def all_gather_rows(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
 
 
 def detect_and_describe_data_parallel(
-    images, cfg: SiftConfig, mesh: DeviceMesh
+    images, cfg: SiftConfig, mesh: DeviceMesh, blur: str = "fused"
 ) -> DescribedKeypoints:
     """``detect_and_describe_batched`` with the batch axis split over the
     ranks: ``images`` (B, H, W), the same on every rank (a tensor or
     numpy, any dtype the frontend takes), is padded with blank frames to a
     multiple of the world size; each rank describes its contiguous share on
-    the mesh's device, and every rank returns the whole batch's result. An
-    image is described on its own, so the pad changes no result."""
+    the mesh's device with ``blur`` (``models/frontend.py``), and every rank
+    returns the whole batch's result. An image is described on its own, so
+    the pad changes no result."""
     images = torch.as_tensor(images)
     _, world, _ = mesh_group(mesh)
     batch = images.shape[0]
     local = put_global(_pad_rows(images, world), mesh)
-    out = detect_and_describe_batched(local, cfg, device=local.device)
+    out = detect_and_describe_batched(local, cfg, blur, device=local.device)
     return DescribedKeypoints(**{
         f.name: all_gather_rows(getattr(out, f.name), mesh)[:batch]
         for f in dataclasses.fields(out)

@@ -12,6 +12,7 @@ In float32, ``--blur separable`` is held to the port's bars: slot agreement
 ≥ 0.999 and p99 position delta ≤ 0.1 px. Then mirrors of the JAX package's
 CLI tests (``tests/test_utils_cli.py``) against the port."""
 
+import dataclasses
 import json
 import os
 
@@ -151,7 +152,46 @@ def test_descriptors_are_described_octave_by_octave(image_path, tmp_path, capsys
     np.testing.assert_array_equal(d["theta"], want.theta[want.valid].numpy())
 
 
-@pytest.mark.parametrize("blur", ["fused", "cuda"])
+def test_pallas_is_the_blur_kernel_as_cuda(image_path, tmp_path, capsys):
+    """``--blur pallas``, the JAX package's name for its blur kernel, runs
+    the port's ``--blur cuda``: the same records and descriptors."""
+    outs = {}
+    for blur in ("pallas", "cuda"):
+        outs[blur] = str(tmp_path / blur)
+        _run(port_main, capsys, image_path, outs[blur], "--device", "cpu", "--no-galleries",
+             "--descriptors", "--blur", blur)
+    assert _records(outs["pallas"]) == _records(outs["cuda"])
+    with np.load(os.path.join(outs["pallas"], "descriptors.npz")) as a, \
+            np.load(os.path.join(outs["cuda"], "descriptors.npz")) as b:
+        assert sorted(a) == sorted(b) and a["descriptor"].shape[0] > 10
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_cli_detection_honours_the_refinement_flags(image_path, tmp_path, capsys, monkeypatch):
+    """The CLI detects through ``detect_from_dog``: a configuration with
+    ``unified_refine`` reaches the pooled refinement, as in the JAX CLI."""
+    from sift_scale_space_extrema_detection_tpu_torch.models import frontend
+
+    seen = []
+    pooled = frontend._refine_pooled
+
+    def spy(dogs, selected, cfg, first=0):
+        seen.append(first)
+        return pooled(dogs, selected, cfg, first)
+
+    @dataclasses.dataclass(frozen=True)
+    class Pooled(port.SiftConfig):
+        unified_refine: bool = True
+
+    monkeypatch.setattr(frontend, "_refine_pooled", spy)
+    monkeypatch.setattr(port, "SiftConfig", Pooled)
+    _run(port_main, capsys, image_path, str(tmp_path / "out"), "--device", "cpu",
+         "--no-galleries", "--descriptors")
+    assert seen == [0]
+
+
+@pytest.mark.parametrize("blur", ["fused", "cuda", "pallas"])
 def test_float64_refuses_the_kernels(image_path, tmp_path, blur):
     with pytest.raises(SystemExit, match="float32 only"):
         port_main([image_path, "-o", str(tmp_path), "--float64", "--blur", blur])

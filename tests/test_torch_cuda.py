@@ -740,3 +740,87 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
         assert rec["launches"] == [4, 2, 0], rec
         assert max(rec["octave_err"], rec["sample_err"], rec["described_err"]) == 0.0, rec
         assert rec["slots_same"] == 1.0 and not rec["rebuilt"], rec
+
+
+# --- the blur-by-blur frontend and the pooled refinement on the card ----------
+
+
+def _counts():
+    return fused_octave.launches, window_sample_pair.launches, blur_fused.launches
+
+
+def test_per_trio_detect_and_describe_on_card_equal_the_tap_loop(device):
+    """``blur="cuda"`` launches K3 once per blurred scale (and K2 twice per
+    describe, K1 never) and gives every field of ``blur="separable"`` on the
+    card: K3 is bit-equal to the tap loop."""
+    images = torch.from_numpy(_blob_images(13, 2, 96, 128)).to(device)
+    cfg = port.SiftConfig(num_octaves=3, scales_per_octave=5, max_keypoints_per_trio=32)
+    for call, k2 in ((port.detect_batched, 0), (port.detect_and_describe_batched, 2)):
+        before = _counts()
+        got = call(images, cfg, "cuda")
+        torch.cuda.synchronize()
+        after = _counts()
+        assert tuple(a - b for a, b in zip(after, before)) == (0, k2, chip_smoke._blur_count(cfg))
+        want = call(images, cfg, "separable")
+        got, want = (r[0] if isinstance(r, tuple) else r for r in (got, want))
+        assert int(want.valid.sum()) > 10
+        for field in dataclasses.fields(want):
+            assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
+    with pytest.raises(ValueError, match="float64"):
+        port.detect_batched(images.double(), cfg, "pallas")
+
+
+def test_per_trio_slam_on_card_equals_the_tap_loop(device):
+    """``run_slam_from_images(blur="cuda")``: 16 K3 launches per frontend
+    chunk at 3 octaves × 3 scales, and the trajectory of ``"separable"``."""
+    from sift_scale_space_extrema_detection_tpu_torch.utils.synthetic import (
+        render_blob_image,
+        textured_blob_field,
+    )
+
+    rng = np.random.default_rng(12)
+    k_mat = np.array([[260.0, 0, 160.0], [0, 260.0, 120.0], [0, 0, 1.0]])
+    rpts, amps, ss = textured_blob_field(rng, rng.uniform([-3.5, -1.8, 4.0], [3.5, 1.8, 9.0],
+                                                          size=(110, 3)))
+    frames = np.stack([
+        render_blob_image(rpts, np.eye(3), -np.array([0.28 * f, 0.02 * f, 0.0]), k_mat, (320, 240),
+                          amplitudes=amps, sigma_scales=ss, rng=np.random.default_rng(100 + f))
+        for f in range(8)
+    ])
+    sift_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
+    slam_cfg = port.SlamConfig(ba_interval=3, ba_window=6, bootstrap_baseline=2)
+    before = _counts()
+    got = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="cuda",
+                                    frontend_chunk=4)
+    after = _counts()
+    per_chunk = chip_smoke._blur_count(sift_cfg)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 2 * 2, 2 * per_chunk)
+    want = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="separable",
+                                     frontend_chunk=4)
+    assert np.isfinite(got.translations).all()
+    np.testing.assert_array_equal(got.rotations, want.rotations)
+    np.testing.assert_array_equal(got.translations, want.translations)
+
+
+@pytest.mark.parametrize("flag", ["unified_refine", "refine_tail_pool"])
+def test_pooled_refinement_on_card_matches_cpu(device, flag):
+    """The pooled refinement on white-noise DoGs, where its pool and ladder
+    overflow: the card's result is the CPU's, and a rerun's bits."""
+    rng = np.random.default_rng(3)
+    dogs = [torch.from_numpy((0.03 * rng.standard_normal((2, 5, h, w))).astype(np.float32))
+            for h, w in ((64, 96), (32, 48), (16, 24))]
+    cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256, **{flag: True})
+    want, _ = port.detect_from_dog(dogs, cfg)
+    per_octave, _ = port.detect_from_dog(dogs, dataclasses.replace(cfg, **{flag: False}))
+    assert not torch.equal(want.reject_reason, per_octave.reject_reason)
+    card = [d.to(device) for d in dogs]
+    got, _ = port.detect_from_dog(card, cfg)
+    again, _ = port.detect_from_dog(card, cfg)
+    for field in ("valid", "reject_reason", "octave", "scale_level", "local_y", "local_x"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+        assert torch.equal(getattr(got, field), getattr(again, field)), field
+    v = want.valid
+    torch.testing.assert_close(got.abs_x.cpu()[v], want.abs_x[v], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.abs_y.cpu()[v], want.abs_y[v], rtol=1e-5, atol=1e-5)
+    for field in ("abs_x", "abs_y", "abs_sigma", "value"):
+        assert torch.equal(getattr(got, field), getattr(again, field)), field

@@ -18,6 +18,7 @@ One run of two ranks serves the whole module
 (``tests/torch_dist_ranks.py``); each test reads its part of it.
 """
 
+import dataclasses
 import functools
 import json
 
@@ -250,6 +251,18 @@ def test_data_parallel_frontend_matches_single(ranks):
     ok = norms > 1e-6
     cos = (d_ref[ok] * d_par[ok]).sum(1) / norms[ok]
     assert (cos > 0.999).mean() > 0.98, (cos.min(), (cos > 0.999).mean())
+
+
+def test_data_parallel_blurred_frontend_matches_single(ranks):
+    """``blur="separable"`` goes through to each rank's share: the gathered
+    result is the unsharded call's, field for field."""
+    got = _out(ranks, "frontend/separable.")
+    ref = port.detect_and_describe_batched(torch.from_numpy(frontend_images()),
+                                           port.SiftConfig(**FRONTEND_CFG), "separable", **CPU)
+    assert ref.valid.sum() > 20, "degenerate test"
+    for field in dataclasses.fields(ref):
+        np.testing.assert_array_equal(got[field.name], getattr(ref, field.name).numpy(),
+                                      err_msg=field.name)
 
 
 def test_sharded_keyframe_matching_matches_vmap(ranks):

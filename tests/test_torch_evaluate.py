@@ -103,6 +103,10 @@ def test_tum_fixture_through_both_evaluators(tmp_path, capsys):
     assert jm["frames"] == pm["frames"] == 4
     assert jm["format"] == pm["format"] == "tum"
     assert jm["ate_rmse"] < 0.25 and pm["ate_rmse"] < 0.25, (jm, pm)
+    # The JAX run above is its default ``--blur separable``; the port's
+    # ``--blur separable`` runs the same frontend.
+    sm, _ = _evaluate(pev.main, capsys, [root, *FLAGS, "--blur", "separable", "--device", "cpu"])
+    assert sm["frames"] == 4 and sm["ate_rmse"] < 0.25, sm
 
 
 def test_kitti_fixture_through_both_evaluators(tmp_path, capsys):

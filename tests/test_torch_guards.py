@@ -242,10 +242,13 @@ def test_window_sample_pair_checks_its_input(args, error):
 
 
 def test_unknown_blur_strategy_raises():
-    with pytest.raises(KeyError):
-        port.build_scale_space(
-            torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), "pallas", device="cpu"
-        )
+    # "pallas" is a strategy since the JAX package's names were taken over
+    # (the blur kernel, as "cuda"); "fused" names no blur of its own.
+    for name in ("box", "fused"):
+        with pytest.raises(ValueError, match="unknown blur"):
+            port.build_scale_space(
+                torch.rand(1, 8, 8), port.SiftConfig(num_octaves=1), name, device="cpu"
+            )
 
 
 _CFG = port.SiftConfig(num_octaves=2)

@@ -114,16 +114,18 @@ def _described(out):
 @scenario
 def frontend(inp, mesh):
     """The data-parallel frontend on ``images`` (tests/test_distributed.py's
-    configuration)."""
+    configuration), on the fused path and, under ``separable.``, blur by
+    blur (``blur="separable"``)."""
     import sift_scale_space_extrema_detection_tpu_torch as port
     from sift_scale_space_extrema_detection_tpu_torch.parallel import (
         detect_and_describe_data_parallel,
     )
 
-    got = detect_and_describe_data_parallel(
-        inp["images"], port.SiftConfig(**FRONTEND_CFG), mesh
-    )
-    return _described(got)
+    cfg = port.SiftConfig(**FRONTEND_CFG)
+    got = detect_and_describe_data_parallel(inp["images"], cfg, mesh)
+    blurred = detect_and_describe_data_parallel(inp["images"], cfg, mesh, blur="separable")
+    return {**_described(got),
+            **{f"separable.{k}": v for k, v in _described(blurred).items()}}
 
 
 @scenario
