@@ -168,6 +168,20 @@ Phases (any failure exits non-zero and prints no result):
     "cuda")`` bit-equal to (c). (f) ``evaluate --blur pallas`` on phase 16's
     40-frame TUM cut: equal to ``--blur cuda``, card against ``--device cpu
     --blur separable`` at phase 16 (c)'s bars.
+19. the JAX package's orbax checkpoints (``_phase_orbax``), read in this
+    process by the port's own zstd, OCDBT and zarr readers (no orbax,
+    tensorstore or zstandard exists here). (a) ``tests/fixtures/jax_orbax/``:
+    config[3]'s SLAM state after frame 21 of a run the JAX package stopped,
+    written by orbax, equal to its npz twin (keys, dtypes, shapes, bytes);
+    its final ``BAState`` restored into a template on the card, equal to its
+    npz twin; the bytes read, seconds and MB/s. (b) ``run_slam(resume=True)``
+    on the card from copies of the orbax state and of its npz twin: the two
+    trajectories bit-equal, more than 200 valid landmarks, ATE < 0.08 and
+    within 0.02 of the JAX package's resumed ATE; K1/K2/K3 0/0/0 (tracks
+    only); seconds and frames/s beside phase 15 (g)'s uninterrupted ATE.
+    (c) Nothing is caught: an unreadable fixture ends the script; none of
+    jax, orbax, tensorstore or zstandard was loaded, and the committed
+    fixture's bytes are unchanged.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -255,6 +269,7 @@ SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card an
 KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
 MATMUL_ATOL = 1e-5
 PER_TRIO_CPU_FRAMES = 8  # phase 18: the batch's frames also run with device="cpu"
+ORBAX_FIXTURE = "tests/fixtures/jax_orbax"  # phase 19, beside this script
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -2394,6 +2409,134 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     return tuple(total), sample_err
 
 
+def _tree_digest(root: str) -> str:
+    """SHA-256 over every file's relative path and bytes under ``root``."""
+    import hashlib
+    import os
+
+    digest = hashlib.sha256()
+    for directory, dirs, files in os.walk(root):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(directory, name)
+            digest.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as f:
+                digest.update(f.read())
+    return digest.hexdigest()
+
+
+def _phase_orbax(torch, port, smi, dev, orbit_ate):
+    """Phase 19: the JAX package's orbax checkpoints (``tests/fixtures/
+    jax_orbax/``, written by ``tools/torch_make_orbax_fixture.py``) read by
+    the port's own zstd, OCDBT and zarr readers in this process, where no
+    orbax, tensorstore or zstandard exists, and BASELINE config[3] resumed
+    from one on ``dev``. ``orbit_ate``: phase 15 (g)'s uninterrupted ATE,
+    printed beside the resumed one. Nothing here is caught: an unreadable
+    fixture ends the script. Returns the (K1, K2, K3) launches of the resume
+    (none: ``run_slam`` on tracks runs no frontend)."""
+    import os
+    import shutil
+    import tempfile
+
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+        window_sample_pair,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState
+    from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint, synthetic
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    digest = _tree_digest(fixture)
+    with open(os.path.join(fixture, "fixture.json")) as f:
+        record = json.load(f)
+
+    # (a) the reader on the card's host.
+    state = os.path.join(fixture, "slam", "state")
+    compressed = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(state)
+                     for n in ns)
+    seconds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        flat = checkpoint.restore_checkpoint_flat(state)
+        seconds.append(time.perf_counter() - t0)
+    twin = checkpoint.restore_checkpoint_flat(os.path.join(fixture, "slam_npz", "state"))
+    _require(sorted(flat) == sorted(twin) and all(
+        flat[k].dtype == twin[k].dtype and flat[k].shape == twin[k].shape
+        and flat[k].tobytes() == twin[k].tobytes() for k in twin
+    ), "orbax: the SLAM state differs from its npz twin")
+    decoded = sum(v.nbytes for v in flat.values())
+    ba_dir = os.path.join(fixture, "ba", "state")
+    shapes = {k: v.shape for k, v in checkpoint.restore_checkpoint_flat(ba_dir).items()}
+    like = BAState(**{k: torch.zeros(sh, device=dev) for k, sh in shapes.items()})
+    ba = checkpoint.restore_checkpoint(ba_dir, like)
+    ba_twin = checkpoint.restore_checkpoint(os.path.join(fixture, "ba_npz", "state"), like)
+    _require(all(getattr(ba, k).device == dev and torch.equal(getattr(ba, k), getattr(ba_twin, k))
+                 for k in shapes), "orbax: the BAState is not its npz twin on the card")
+    median = float(np.median(seconds))
+    _say(
+        f"orbax reader on the host: config[3]'s SLAM state after frame {int(flat['frame'])} "
+        f"({len(flat)} arrays), {compressed} bytes on disk decoded to {decoded} bytes in "
+        f"{1e3 * median:.1f} ms (median of {', '.join(f'{1e3 * t:.1f}' for t in seconds)} ms), "
+        f"{compressed / median / 1e6:.2f} MB/s read, {decoded / median / 1e6:.2f} MB/s decoded; "
+        f"equal to the npz twin (keys, dtypes, shapes, bytes); BAState {shapes} restored onto "
+        f"{dev}, equal to its npz twin [{smi}]"
+    )
+
+    # (b) the resume, from copies: the resumed run's npz save removes the
+    # orbax directory it resumed from.
+    recipe = record["recipe"]
+    seq = synthetic.orbit_sequence(
+        np.random.default_rng(recipe["seed"]), num_frames=recipe["num_frames"],
+        num_landmarks=recipe["num_landmarks"], noise_px=recipe["noise_px"],
+        outlier_frac=recipe["outlier_frac"],
+    )
+    cfg = port.SlamConfig()
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    results, run_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("slam", "slam_npz"):
+            work = os.path.join(tmp, name)
+            shutil.copytree(os.path.join(fixture, name), work)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            results[name] = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg,
+                                          checkpoint_dir=work, resume=True, device=dev)
+            _sync(torch, dev)
+            run_s[name] = time.perf_counter() - t0
+    launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches)
+    got, npz = results["slam"], results["slam_npz"]
+    same = (np.array_equal(got.rotations, npz.rotations)
+            and np.array_equal(got.translations, npz.translations))
+    ate = port.evaluate_ate(got, seq.rotations, seq.translations, device=dev)
+    landmarks = int(got.landmark_valid.sum())
+    frames = recipe["num_frames"] - int(flat["frame"]) - 1
+    _say(
+        f"orbax resume of BASELINE config[3] on {dev} from the JAX package's checkpoint after "
+        f"frame {int(flat['frame'])} (jax {record['versions']['jax']}, orbax "
+        f"{record['versions']['orbax-checkpoint']}): {frames} frames in "
+        f"{1e3 * run_s['slam']:.1f} ms, restore included ({frames / run_s['slam']:.2f} frames/s; "
+        f"from the npz twin {1e3 * run_s['slam_npz']:.1f} ms), bit-equal to the npz resume "
+        f"{same}, valid landmarks {landmarks} (bar > {ORBIT_MIN_LANDMARKS}), ATE {ate:.6f} (bars: "
+        f"< {ORBIT_ATE}, within {SLAM_ATE_GAP} of the JAX package's resumed "
+        f"{record['jax_resumed_ate']:.6f}); phase 15 (g)'s uninterrupted ATE {orbit_ate:.6f}; "
+        f"K1/K2/K3 {launches} [{smi}]"
+    )
+    _require(same, "orbax: the resume differs from the npz twin's")
+    _require(landmarks > ORBIT_MIN_LANDMARKS, "orbax resume: too few landmarks")
+    _require(ate < ORBIT_ATE, "orbax resume: ATE above the reference's bar")
+    _require(abs(ate - record["jax_resumed_ate"]) < SLAM_ATE_GAP,
+             "orbax resume: ATE far from the JAX package's")
+    _require(launches == (0, 0, 0), "orbax resume: a kernel launched on a tracks-only path")
+
+    # (c) no way round the reader.
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "orbax", "tensorstore", "zstandard"))
+    _require(not loaded, f"orbax: {loaded} loaded in this process")
+    _require(_tree_digest(fixture) == digest, "orbax: the committed fixture changed")
+    return launches
+
+
 def main() -> int:
     import dataclasses
 
@@ -3020,6 +3163,7 @@ def main() -> int:
     max_err, sample_err = max(max_err, shard_octave_err), max(sample_err, shard_sample_err)
     blur_path_launches, blur_path_sample_err = _phase_blur_paths(torch, port, smi, device)
     sample_err = max(sample_err, blur_path_sample_err)
+    orbax_launches = _phase_orbax(torch, port, smi, device, slam_refs["orbit_ate"])
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -3032,7 +3176,7 @@ def main() -> int:
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
                 + stream_launches[0] + surface_launches[0] + shard_launches[0]
-                + blur_path_launches[0],
+                + blur_path_launches[0] + orbax_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -3047,7 +3191,7 @@ def main() -> int:
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
                 + stream_launches[1] + surface_launches[1] + shard_launches[1]
-                + blur_path_launches[1],
+                + blur_path_launches[1] + orbax_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -3061,7 +3205,8 @@ def main() -> int:
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
-                + surface_launches[2] + shard_launches[2] + blur_path_launches[2],
+                + surface_launches[2] + shard_launches[2] + blur_path_launches[2]
+                + orbax_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

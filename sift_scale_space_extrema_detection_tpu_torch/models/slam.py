@@ -289,7 +289,12 @@ def run_slam(
     (poses, map, observations) every ``checkpoint_interval`` frames, in the
     npz + JSON format of ``utils/checkpoint.py`` (or a ``mem://`` store);
     ``resume=True`` restores the latest checkpoint and continues
-    mid-sequence — a checkpoint written by the JAX package resumes here too.
+    mid-sequence. A checkpoint the JAX package wrote resumes here too, in
+    either of its formats: npz + JSON, or an orbax directory (read without
+    orbax by ``utils/ocdbt.py``). Such a checkpoint holds no pose gate
+    steps, so the resume re-seeds them from the checkpointed trajectory,
+    as the JAX package does. A checkpoint that exists and cannot be read
+    raises; the run never starts afresh in its place.
     ``_stop_after`` aborts after processing that frame index (fault
     injection for the resume tests, and the streaming session's step); the
     final BA is skipped for a stopped run. ``profile``: an optional

@@ -62,6 +62,14 @@ class SlamSession:
                 use(update.rotations, update.translations)
         result = sess.finalize()             # global BA (+ pose graph)
 
+    ``workdir``: where the back end's rolling state lives between steps
+    (an in-process ``mem://`` store by default); a disk directory survives
+    the process. The state is ``run_slam``'s checkpoint, and each step after
+    the first resumes from it, so the back end state a session of the JAX
+    package left in a directory is read here too, npz + JSON or orbax
+    alike (an orbax state holds no pose gate steps: they are re-seeded
+    from its trajectory, as in JAX).
+
     ``device``: see ``core/device.py`` (the card, or an error where there
     is none, unless ``device="cpu"``); ``dtype``: the back end's
     (``models/slam.py``). ``blur``: the frontend's (``models/frontend.py``),

@@ -824,3 +824,24 @@ def test_pooled_refinement_on_card_matches_cpu(device, flag):
     torch.testing.assert_close(got.abs_y.cpu()[v], want.abs_y[v], rtol=1e-5, atol=1e-5)
     for field in ("abs_x", "abs_y", "abs_sigma", "value"):
         assert torch.equal(getattr(got, field), getattr(again, field)), field
+
+
+def test_the_references_orbax_ba_state_restores_onto_the_card(device):
+    """The JAX package's orbax ``BAState`` fixture, read by the port's own
+    zstd/OCDBT/zarr readers into a template on the card: leaves on
+    ``cuda:0``, equal to its npz twin."""
+    from pathlib import Path
+
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState
+    from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint
+
+    fixture = Path(__file__).resolve().parent / "fixtures" / "jax_orbax"
+    shapes = {k: v.shape for k, v in
+              checkpoint.restore_checkpoint_flat(str(fixture / "ba" / "state")).items()}
+    like = BAState(**{k: torch.zeros(s, device=device) for k, s in shapes.items()})
+    got = checkpoint.restore_checkpoint(str(fixture / "ba" / "state"), like)
+    want = checkpoint.restore_checkpoint(str(fixture / "ba_npz" / "state"), like)
+    for name in shapes:
+        leaf = getattr(got, name)
+        assert leaf.device == device and leaf.dtype == torch.float32, name
+        assert torch.equal(leaf, getattr(want, name)), name

@@ -98,6 +98,44 @@ def test_port_runs_without_importing_jax():
     assert proc.stdout.startswith("ok ")
 
 
+def test_orbax_checkpoints_restore_without_jax_orbax_tensorstore_or_zstandard():
+    """The JAX package's orbax fixture restores in a fresh interpreter in
+    which jax, orbax, tensorstore and zstandard cannot be imported, as on
+    the card's machine."""
+    code = textwrap.dedent(
+        """
+        import sys
+        BLOCKED = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard")
+        for name in BLOCKED:
+            sys.modules[name] = None  # any import of it raises ImportError
+        import numpy as np
+        import torch
+        from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState
+        from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint
+        fixture = "tests/fixtures/jax_orbax/"
+        orbax = checkpoint.restore_checkpoint_flat(fixture + "slam/state")
+        npz = checkpoint.restore_checkpoint_flat(fixture + "slam_npz/state")
+        assert sorted(orbax) == sorted(npz)
+        assert all(orbax[k].tobytes() == npz[k].tobytes() for k in npz)
+        shapes = {k: v.shape for k, v in checkpoint.restore_checkpoint_flat(fixture + "ba/state").items()}
+        like = BAState(**{k: torch.zeros(s) for k, s in shapes.items()})
+        got = checkpoint.restore_checkpoint(fixture + "ba/state", like)
+        want = checkpoint.restore_checkpoint(fixture + "ba_npz/state", like)
+        assert all(torch.equal(getattr(got, k), getattr(want, k)) for k in shapes)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
+        assert not loaded, loaded
+        assert "sift_scale_space_extrema_detection_tpu" not in sys.modules
+        print("ok", len(orbax))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok ")
+
+
 def test_a_cuda_mesh_without_a_card_raises(monkeypatch):
     # The check comes before any process group is needed.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -134,7 +172,9 @@ def test_a_mesh_of_another_device_type_is_refused():
 
 def test_no_file_of_the_port_imports_jax():
     banned = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|sift_scale_space_extrema_detection_tpu[. ])", re.M
+        r"^\s*(import|from)\s+(jax|flax|orbax|tensorstore|zstandard"
+        r"|sift_scale_space_extrema_detection_tpu[. ])",
+        re.M,
     )
     files = sorted((REPO / "sift_scale_space_extrema_detection_tpu_torch").rglob("*.py"))
     assert len(files) > 25
