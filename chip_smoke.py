@@ -148,7 +148,12 @@ Phases (any failure exits non-zero and prints no result):
 17. sharding over ``torch.distributed`` (``_phase_sharding``): (a) world 1
     on NCCL in this process, the data-parallel frontend, keyframe-sharded
     matching, the sharded BA and composed SLAM and streaming with a mesh,
-    each equal to its unsharded run; (b) two gloo ranks spawned on the card.
+    each equal to its unsharded run; (b) two gloo ranks spawned on the card
+    (``_shard_rank``, held by ``_shard_bars`` as phase 20's ranks are): the
+    frontend bit-equal to each 32-frame share's single-device run, 4/2/0 a
+    rank, K1/K2 equal to their plain versions; the BA on phase 14's dense
+    problem, ranks and reruns bit-equal, within 1e-3 of world 1; config[3]'s
+    orbit with every BA sharded, at phase 15's bars.
 18. the blur-by-blur frontend and the pooled refinement
     (``_phase_blur_paths``), every part's three counts zeroed before it and
     read after it. (a) ``detect_batched(blur="cuda")`` on the 64-frame batch
@@ -182,6 +187,29 @@ Phases (any failure exits non-zero and prints no result):
     (c) Nothing is caught: an unreadable fixture ends the script; none of
     jax, orbax, tensorstore or zstandard was loaded, and the committed
     fixture's bytes are unchanged.
+20. the sharded paths across cards (``_phase_multicard``), only where
+    several cards are visible (on one it prints a line saying so; alone on
+    four: ``tools/torch_multicard_phase.py``). min(4, cards) ranks started by
+    ``python -m torch.distributed.run --standalone`` (``_shard_rank``),
+    NCCL, rank r on ``cuda:r`` by ``LOCAL_RANK`` although each initialised
+    CUDA first; the single-card references in this process on ``cuda:0``.
+    (a) ``detect_and_describe_data_parallel`` on 4 × 64 × 480×640 frames
+    with ``blur="fused"`` and ``"cuda"``: the gathered fields bit-equal to
+    the shares' ``detect_and_describe_batched``, K1/K2/K3 4/2/0 and 0/2/29 a
+    rank, each rank's outputs on its card before the gather, K1/K2 and K3
+    equal to their plain versions on its share (max abs diff 0), no rank
+    allocating on another's card; ms a step, frames/s, memory. (b)
+    keyframe-sharded matching of 1,800 slots against 64 keyframes, bit-equal
+    to the world-1 ``vmap(match_descriptors)``. (c) the sharded BA on phase
+    14's two problems: cost within 1e-3 of world 1's, rms <= 1 px, ranks
+    bit-equal. (d) phase 15's gated sequence through ``run_slam_from_images
+    (mesh=...)`` at ``dist_ba_min_landmarks`` 4096 and 0 (sharded BAs > 0),
+    ATE within 0.02 of the single card's, ranks bit-equal; ``SlamSession``
+    within 0.02 of it; launches 3/2/0 a rank for each run and 24/16/0 for
+    the session. (e) config[3]'s orbit at threshold 0: ATE < 0.08 and
+    within 0.02 of the single card's. (f) ``tools/torch_dryrun_multichip.py
+    --world 4``. (g) ``detect_and_describe_batched(device="cuda:3")`` in this
+    process: bit-equal to ``cuda:0``'s, nothing allocated on card 0.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -261,8 +289,12 @@ ORBIT_MIN_LANDMARKS = 200
 ORBIT_ATE = 0.08  # 1 % of the orbit's radius
 SHARD_WORLD = 2  # phase 17 (b): two gloo ranks on the one card
 SHARD_TIMEOUT_S = 120  # every collective's limit
-SHARD_ATOL = 1e-4  # tests/test_multihost.py:204-219
 SHARD_BA = (50, 4096, 512)  # phase 14's dense problem: cameras, landmarks, observations a camera
+BA_LARGE = (1000, 100_000, 300)  # phase 14's CG problem, through the sharded solver in phase 20
+MULTICARD_WORLD = 4  # phase 20: at most four ranks, one a card
+MULTICARD_KEYFRAMES = 64  # phase 20 (b): 1,800 query slots against 64 keyframes
+MULTICARD_REPEATS = 5
+MULTICARD_TIMEOUT_S = 900  # the ranks' whole run, and the dry run's
 BA_ITERATIONS = 10
 SURFACE_FRAMES = 200  # each on-disk rehearsal sequence
 SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card and on the CPU
@@ -751,11 +783,7 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
 
 def _phase_solvers(torch, port, smi) -> None:
     """Phase 14: bundle adjustment (dense and CG) and the pose graph."""
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
-        BAState,
-        Observations,
-        bundle_adjust,
-    )
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
     from sift_scale_space_extrema_detection_tpu_torch.sfm.pose_graph import (
         PoseGraphEdges,
         optimize_pose_graph,
@@ -765,13 +793,9 @@ def _phase_solvers(torch, port, smi) -> None:
     sizes = {"dense": (50, 4096, 512), "cg": (1000, 100_000, 300)}
     iterations = 10
     for solver, (c, l, opc) in sizes.items():
-        p = {k: torch.from_numpy(v) for k, v in _ba_problem(np.random.default_rng(0), c, l, opc).items()}
-        state = BAState(p["rotations"], p["translations"], p["points"], p["k_mat"])
-        obs = Observations(p["camera"], p["landmark"], p["uv"],
-                           torch.ones(c * opc, dtype=torch.bool))
+        state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc),
+                                 torch.device("cuda", 0))
         n_obs = c * opc
-        # All state lives on the card.
-        state, obs = (type(v)(**{k: t.cuda() for k, t in vars(v).items()}) for v in (state, obs))
 
         def run(num_iterations=iterations, **kw):
             return bundle_adjust(state, obs, num_iterations=num_iterations, solver=solver,
@@ -1155,10 +1179,7 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     prof = StageProfile()
     batch(profile=prof)
     report = prof.report(total_frames=frames)
-    stages = ", ".join(
-        f"{name} {v['ms_per_call'] * v['calls']:.1f} ms/{v['calls']}"
-        for name, v in report["stages"].items()
-    )
+    stages = _stage_line(report)
     _say(
         f"timing SLAM batch: {1e3 * seconds:.1f} ms for {frames} frames, {frames / seconds:.2f} "
         f"frames/s, peak device memory {peak_gib:.2f} GiB; streaming window step median "
@@ -1213,118 +1234,6 @@ def _same_solve(torch, a, b, cost_a, cost_b) -> bool:
                for f in ("rotations", "translations", "points")) and torch.equal(cost_a, cost_b)
 
 
-def _sharding_rank(rank, world, workdir, spec):
-    """Phase 17 (b): one rank of the gloo group (spawned), on ``spec["device"]``
-    ("cuda": every rank on the card the process is given). The data-parallel
-    frontend on the main-path batch, K1 and K2 against their plain versions
-    on this rank's share; with ``spec["full"]`` also the sharded BA on phase
-    14's dense problem and config[3]'s orbit through ``run_slam(mesh=…)``.
-    Writes ``rank<r>.json`` (readings, launches, bars' inputs) and, on rank
-    0, the gathered frontend result ``frontend.npz``. The kernels are loaded
-    from the library phase 2 built: a rebuild fails the rank."""
-    import datetime
-    import os
-
-    import torch
-    import torch.distributed as dist
-
-    import sift_scale_space_extrema_detection_tpu_torch as port
-    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
-    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
-    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
-        detect_and_describe_data_parallel,
-        distributed_bundle_adjust,
-        initialize_multihost,
-        make_mesh,
-        put_global,
-    )
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState, Observations
-    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
-
-    torch.set_num_threads(2)
-    on_card = spec["device"] == "cuda"
-    built = set(os.listdir(_build.BUILD_DIR)) if on_card else set()
-    initialize_multihost(f"file://{os.path.join(workdir, 'store2')}", world, rank,
-                         backend="gloo", timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
-    try:
-        mesh = make_mesh(world, device_type=spec["device"])
-        dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        rec = dict(rank=rank, device=str(dev))
-        cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
-        images = _make_batch(spec["batch"], spec["height"], spec["width"])
-        detect_and_describe_data_parallel(images, cfg, mesh)  # warm-up
-        _sync(torch, dev)
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        t0 = time.perf_counter()
-        got = detect_and_describe_data_parallel(images, cfg, mesh)
-        _sync(torch, dev)
-        rec["frontend_ms"] = 1e3 * (time.perf_counter() - t0)
-        rec["launches"] = [fused_octave.launches, window_sample_pair.launches, blur_fused.launches]
-        share = spec["batch"] // world
-        mine = _described_fields(got)
-        local = type(got)(**{k: v[rank * share:(rank + 1) * share] for k, v in mine.items()})
-        errs = _kernels_vs_plain(torch, _as_unit_float(put_global(images, mesh)), cfg, local)
-        rec.update(zip(("octave_err", "masks_same", "sample_err", "stage_shapes", "slots_same",
-                        "described_err"), errs))
-        if rank == 0:
-            np.savez(os.path.join(workdir, "frontend.npz"),
-                     **{k: v.cpu().numpy() for k, v in mine.items()})
-        del got, local, mine
-        if spec["full"]:
-            c, l, opc = spec["ba"]
-            p = _ba_problem(np.random.default_rng(0), c, l, opc)
-            state = BAState(*(torch.from_numpy(p[k]).to(dev)
-                              for k in ("rotations", "translations", "points", "k_mat")))
-            obs = Observations(torch.from_numpy(p["camera"]).to(dev),
-                               torch.from_numpy(p["landmark"]).to(dev),
-                               torch.from_numpy(p["uv"]).to(dev),
-                               torch.ones(c * opc, dtype=torch.bool, device=dev))
-            out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
-            t0 = time.perf_counter()
-            again, cost_again = distributed_bundle_adjust(state, obs, mesh,
-                                                          num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
-            rec["ba_ms_per_iteration"] = 1e3 * (time.perf_counter() - t0) / BA_ITERATIONS
-            rec["ba_cost"] = cost.item()
-            rec["ba_rms"] = float(torch.sqrt(2.0 * cost / (c * opc)))
-            rec["ba_rerun_equal"] = _same_solve(torch, out, again, cost, cost_again)
-            del state, obs, out, again
-
-            seq = _orbit_sequence(synthetic, spec["orbit_frames"])
-            orbit_cfg = port.SlamConfig(dist_ba_min_landmarks=0)
-            read, restore = _count_bas(slam_module)
-            try:
-                _sync(torch, dev)
-                t0 = time.perf_counter()
-                orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, mesh=mesh,
-                                      device=dev)
-                _sync(torch, dev)
-                rec["orbit_seconds"] = time.perf_counter() - t0
-            finally:
-                rec["orbit_bas"] = list(read())
-                restore()
-            rec["orbit_ate"] = port.evaluate_ate(orbit, seq.rotations, seq.translations,
-                                                 device=dev)
-            rec["orbit_landmarks"] = int(orbit.landmark_valid.sum())
-            every = [None] * world
-            dist.all_gather_object(every, (orbit.rotations.tobytes(), orbit.translations.tobytes()))
-            rec["orbit_same_on_every_rank"] = all(t == every[0] for t in every)
-        if on_card:
-            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            rec["rebuilt"] = sorted(set(os.listdir(_build.BUILD_DIR)) - built)
-        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-            json.dump(rec, f)
-    finally:
-        dist.destroy_process_group()
-
-
 def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGHT),
                     ba_sizes=SHARD_BA, slam_frames=SLAM_FRAMES, orbit_frames=ORBIT_FRAMES,
                     world=SHARD_WORLD):
@@ -1333,7 +1242,8 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     frontend, keyframe-sharded matching, the sharded BA, composed SLAM and
     the streaming session with a mesh. (b) World ``world`` on gloo, every
     rank spawned on the same ``dev``: the frontend, the BA and config[3]'s
-    orbit (:func:`_sharding_rank`). ``refs``: phase 15's readings. Returns
+    orbit (:func:`_shard_rank`, held by :func:`_shard_bars`, as phase 20's
+    ranks are). ``refs``: phase 15's readings. Returns
     ``(launches, octave_err, sample_err)``: the (K1, K2, K3) launches of the
     sharded main paths ((a) and every rank of (b)) and the kernels' largest
     differences from their plain versions on them."""
@@ -1357,11 +1267,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         make_mesh,
         match_against_keyframes_sharded,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
-        BAState,
-        Observations,
-        bundle_adjust,
-    )
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
 
     on_card = dev.type == "cuda"
     total = [0, 0, 0]
@@ -1443,11 +1349,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
 
         # The sharded BA on phase 14's dense problem.
         c, l, opc = ba_sizes
-        p = {k: torch.from_numpy(v).to(dev)
-             for k, v in _ba_problem(np.random.default_rng(0), c, l, opc).items()}
-        state = BAState(p["rotations"], p["translations"], p["points"], p["k_mat"])
-        obs = Observations(p["camera"], p["landmark"], p["uv"],
-                           torch.ones(c * opc, dtype=torch.bool, device=dev))
+        state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
         _, single_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS, device=dev)
         scatter, scatter_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS,
                                               assembly="scatter", device=dev)
@@ -1472,7 +1374,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         _require(rel <= BA_SCATTER_RTOL, "the sharded BA ends at another cost")
         _require(rms < BA_MAX_RMS_PX, "the sharded BA: rms above the bar")
         _require(rerun_same, "the sharded BA: two runs differ")
-        del p, state, obs, out, again, scatter
+        del state, obs, out, again, scatter
 
         # Composed SLAM: phase 15's gated sequence with every BA sharded.
         recipe = slam_bench_recipe(port, slam_frames, width, height)
@@ -1501,12 +1403,12 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
             restore()
         slam_launches = counts()
         ate = port.evaluate_ate(sharded, gt_r, gt_t, device=dev)
-        chunks = -(-slam_frames // SLAM_CHUNK)
+        want_slam, want_stream = _slam_launches(recipe, slam_frames, 1)
         _say(
             f"sharding (a): run_slam_from_images(mesh=...) on phase 15's gated sequence "
             f"({slam_frames} x {height}x{width}, {SLAM_MATCH_GATE_PX:g} px gate, "
             f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches K1/K2/K3 "
-            f"{slam_launches} (expected {(3 * chunks, 2 * chunks, 0)}), BAs single/sharded "
+            f"{slam_launches} (expected {want_slam}), BAs single/sharded "
             f"{slam_bas} (the run without a mesh: {n_ba} BAs), valid landmarks "
             f"{int(sharded.landmark_valid.sum())}, ATE {ate:.4f} (bars: < {SLAM_REF_ATE}, within "
             f"{SLAM_ATE_GAP} of phase 15's {refs['solved_ate']:.4f}; without a mesh here "
@@ -1514,7 +1416,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
             f"{slam_frames / slam_seconds:.2f} frames/s, a reading [{smi}]"
         )
         if on_card:
-            _require(slam_launches == (3 * chunks, 2 * chunks, 0),
+            _require(slam_launches == want_slam,
                      f"the sharded SLAM path launched K1/K2/K3 {slam_launches} times")
         _require(slam_bas == (0, n_ba) and n_ba > 0, "not every BA of the run was sharded")
         _require(np.isfinite(sharded.translations).all(), "sharded SLAM: not finite")
@@ -1538,17 +1440,13 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         stream_launches = counts()
         stream_same = np.array_equal(streamed.rotations, sharded.rotations) and np.array_equal(
             streamed.translations, sharded.translations)
-        start, win = 2, sharded_cfg.ba_interval
-        calls = sum(1 for t in range(1, slam_frames + 1)
-                    if t >= start + win and (t - start) % win == 0)
-        calls += (slam_frames - start) % win != 0
         _say(
             f"sharding (a): SlamSession(mesh=...) over the same frames: launches K1/K2/K3 "
-            f"{stream_launches} (expected {(3 * calls, 2 * calls, 0)}), BAs single/sharded "
+            f"{stream_launches} (expected {want_stream}), BAs single/sharded "
             f"{stream_bas}, bit-equal to the sharded batch run {stream_same}"
         )
         if on_card:
-            _require(stream_launches == (3 * calls, 2 * calls, 0),
+            _require(stream_launches == want_stream,
                      f"the sharded session launched K1/K2/K3 {stream_launches} times")
         _require(stream_bas[0] == 0 and stream_bas[1] > 0, "the session's BAs were not sharded")
         _require(stream_same, "the sharded session differs from the sharded batch run")
@@ -1558,84 +1456,828 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     # (b) world ``world`` on gloo, every rank on this device. The ranks need
     # the card's memory that this process's allocator still caches from the
     # phases before.
-    want = {k: getattr(want, k).cpu().numpy() for k in ("valid", "abs_x", "abs_y", "descriptor")}
+    del want
+    share = batch // world
+    ref = _share_references(torch, port, dev, images_cpu.numpy(), share, ("fused",))
+    del ref["fused"]
+    ref.update(ba={"dense": dict(cost=world1_cost, ms=ba_ms, peak=None)},
+               orbit_ate=refs["orbit_ate"], orbit_bas=refs["orbit_bas"])
+    spec = dict(world=world, device=dev.type,
+                cards=[torch.cuda.current_device()] * world if on_card else None, share=share,
+                height=height, width=width, blurs=["fused"], repeats=3, keyframes=0,
+                ba=[["dense", *ba_sizes]], slam_frames=0, orbit_frames=orbit_frames)
+    _write_spec(work, spec)
     if on_card:
         torch.cuda.empty_cache()
-    spec = dict(device=dev.type, batch=batch, height=height, width=width, ba=ba_sizes,
-                orbit_frames=orbit_frames, full=True)
     t0 = time.perf_counter()
-    mp.spawn(_sharding_rank, args=(world, work, spec), nprocs=world)
-    spawn_seconds = time.perf_counter() - t0
+    mp.spawn(_shard_rank, args=(work,), nprocs=world)
+    _say(f"sharding (b): {world} gloo ranks spawned on {dev}, ran in "
+         f"{time.perf_counter() - t0:.1f} s")
+    launches, rank_octave_err, rank_sample_err, _ = _shard_bars(
+        torch, _read_ranks(work, world), spec, ref, smi, f"sharding (b), world {world}")
+    for i, n in enumerate(launches):
+        total[i] += n
+    shutil.rmtree(work, ignore_errors=True)
+    return tuple(total), max(octave_err, rank_octave_err), max(sample_err, rank_sample_err)
+
+
+def _digest(torch, *tensors) -> str:
+    """SHA-256 of tensors' dtypes, shapes and bytes (on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        a = t.detach().cpu().contiguous().numpy()
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _ba_tensors(torch, p, dev):
+    """``(BAState, Observations)`` of a :func:`_ba_problem` dict on ``dev``."""
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState, Observations
+
+    t = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+    state = BAState(t["rotations"], t["translations"], t["points"], t["k_mat"])
+    obs = Observations(t["camera"], t["landmark"], t["uv"],
+                       torch.ones(t["camera"].shape[0], dtype=torch.bool, device=dev))
+    return state, obs
+
+
+def _stage_line(report) -> str:
+    return ", ".join(f"{name} {v['ms_per_call'] * v['calls']:.1f} ms/{v['calls']}"
+                     for name, v in report["stages"].items())
+
+
+def _shard_rank(rank, workdir: str) -> None:
+    """One rank of phase 17 (b) or phase 20, as ``<workdir>/spec.json``
+    says. Spawned by ``torch.multiprocessing.spawn``, which passes
+    ``rank``, it joins ``spec["world"]`` gloo ranks over a file store in
+    ``workdir``; started by ``torchrun`` (``rank`` is ``None``), it calls
+    ``initialize_multihost()``, which reads the environment: NCCL with a
+    card a rank, gloo on the CPU. On the card the rank initialises CUDA
+    before the mesh (``get_device_name``, as every tool does first): the
+    mesh must then move it to its card. The legs: (a) the data-parallel
+    frontend with each blur of ``spec["blurs"]`` on ``spec["share"]`` frames
+    a rank (launches, the device of the outputs before the gather, digests
+    of the gathered fields, memory, times; K1 and K2 against their plain
+    versions on this rank's share, K3 through the share's scale space
+    against the tap loop); (b) keyframe-sharded matching of frame 0 against
+    the next ``spec["keyframes"]`` frames (0: none); (c) the sharded BA on
+    each problem of ``spec["ba"]``, twice; (d) with ``spec["slam_frames"]``
+    (0: none), composed SLAM on phase 15's gated sequence at the reference's
+    ``dist_ba_min_landmarks`` and at 0, its stages, and ``SlamSession`` at
+    0; (e) config[3]'s orbit of ``spec["orbit_frames"]`` (0: none) at 0.
+    Writes ``rank<r>.json``; :func:`_shard_bars` holds the bars. The kernels
+    are loaded from the library the parent built: a rebuild fails the
+    rank."""
+    import dataclasses
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import sift_scale_space_extrema_detection_tpu_torch as port
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
+        _as_unit_float,
+        build_scale_space,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import distributed as distributed_module
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
+        detect_and_describe_data_parallel,
+        distributed_bundle_adjust,
+        initialize_multihost,
+        make_mesh,
+        match_against_keyframes_sharded,
+        put_global,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.parallel.multihost import mesh_device
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+    from sift_scale_space_extrema_detection_tpu_torch.utils.profile import StageProfile
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    on_card = spec["device"] == "cuda"
+    torch.set_num_threads(2)
+    rec = {}
+    if on_card:
+        rec["name"] = torch.cuda.get_device_name()
+        built = set(os.listdir(_build.BUILD_DIR))
+    rec["cuda_initialized_before_mesh"] = torch.cuda.is_initialized()
+    timeout = datetime.timedelta(seconds=SHARD_TIMEOUT_S)
+    if rank is None:
+        initialize_multihost(timeout=timeout)
+    else:
+        initialize_multihost(f"file://{os.path.join(workdir, 'store_ranks')}", spec["world"],
+                             rank, backend="gloo", timeout=timeout)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mesh = make_mesh(world, device_type=spec["device"])
+        dev = mesh_device(mesh)
+        rec.update(rank=rank, local_rank=os.environ.get("LOCAL_RANK"), backend=dist.get_backend(),
+                   device=str(dev), current_device=torch.cuda.current_device() if on_card else None)
+
+        def zero():
+            fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+
+        def counts():
+            return [fused_octave.launches, window_sample_pair.launches, blur_fused.launches]
+
+        def peak_gib():
+            return torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+
+        def reset_peak():
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+
+        def timed(fn, reps):
+            out = []
+            for _ in range(reps):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                fn()
+                _sync(torch, dev)
+                out.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        # (a) the data-parallel frontend.
+        cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+        share = spec["share"]
+        images = _make_batch(world * share, spec["height"], spec["width"])
+        mine = _as_unit_float(put_global(images, mesh))
+        gather, seen, matching = distributed_module.all_gather_rows, [], None
+
+        def watching(x, mesh):
+            seen.append(str(x.device))
+            return gather(x, mesh)
+
+        for blur in spec["blurs"]:
+            def run(blur=blur):
+                return detect_and_describe_data_parallel(images, cfg, mesh, blur)
+
+            run()  # warm-up
+            _sync(torch, dev)
+            before = torch.cuda.memory_allocated(dev) if on_card else 0
+            reset_peak()
+            zero()
+            seen.clear()
+            distributed_module.all_gather_rows = watching
+            try:
+                got = run()
+                _sync(torch, dev)
+            finally:
+                distributed_module.all_gather_rows = gather
+            leg = dict(launches=counts(), outputs_on=sorted(set(seen)),
+                       peak_gib=peak_gib(),
+                       peak_rise_bytes=torch.cuda.max_memory_allocated(dev) - before
+                       if on_card else None,
+                       digests={name: _digest(torch, t)
+                                for name, t in _described_fields(got).items()},
+                       ms=timed(run, spec["repeats"]))
+            local = type(got)(**{k: v[rank * share:(rank + 1) * share]
+                                 for k, v in _described_fields(got).items()})
+            if blur == "fused":
+                leg.update(zip(("octave_err", "masks_same", "sample_err", "stage_shapes",
+                                "slots_same", "described_err"),
+                               _kernels_vs_plain(torch, mine, cfg, local)))
+                if spec["keyframes"]:
+                    matching = (got.descriptor[0], got.valid[0],
+                                got.descriptor[1:1 + spec["keyframes"]],
+                                got.valid[1:1 + spec["keyframes"]])
+            else:
+                leg["blur_err"] = max(
+                    (a - b).abs().max().item()
+                    for a, b in zip(build_scale_space(mine, cfg, blur=blur, device=dev),
+                                    build_scale_space(mine, cfg, blur="separable", device=dev)))
+            rec[f"frontend_{blur}"] = leg
+            del got, local
+        del mine
+
+        # (b) keyframe-sharded matching.
+        if matching is not None:
+            def match():
+                return match_against_keyframes_sharded(*matching, mesh)
+
+            got = match()
+            rec["match"] = dict(digest=_digest(torch, *got), matches=int(got[2].sum()),
+                                ms=timed(match, spec["repeats"]))
+            del matching, got
+
+        # (c) the sharded BA, twice on each problem.
+        for name, c, l, opc in spec["ba"]:
+            state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
+            reset_peak()
+            out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            again, cost_again = distributed_bundle_adjust(state, obs, mesh,
+                                                          num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            seconds = time.perf_counter() - t0
+            rec[f"ba_{name}"] = dict(
+                cost=cost.item(), rms=float(torch.sqrt(2.0 * cost / (c * opc))),
+                digest=_digest(torch, out.rotations, out.translations, out.points, cost),
+                rerun_equal=_same_solve(torch, out, again, cost, cost_again),
+                rerun_max_diff=max((getattr(out, f) - getattr(again, f)).abs().max().item()
+                                   for f in ("rotations", "translations", "points")),
+                ms_per_iteration=1e3 * seconds / BA_ITERATIONS, peak_gib=peak_gib())
+            del state, obs, out, again
+
+        # (d) composed SLAM on phase 15's gated sequence.
+        if spec["slam_frames"]:
+            recipe = slam_bench_recipe(port, spec["slam_frames"], spec["width"], spec["height"])
+            frames, gt_r, gt_t, k_mat = (recipe[k] for k in ("images", "gt_r", "gt_t", "k_mat"))
+            track = dict(reassoc_window=recipe["reassoc_window"], **recipe["solved"])
+            configs = {t: dataclasses.replace(recipe["slam_cfg"], dist_ba_min_landmarks=t)
+                       for t in (recipe["slam_cfg"].dist_ba_min_landmarks, 0)}
+
+            def slam(threshold, **kw):
+                return port.run_slam_from_images(frames, k_mat, recipe["sift_cfg"],
+                                                 configs[threshold], mesh=mesh,
+                                                 frontend_chunk=SLAM_CHUNK, device=dev, **track,
+                                                 **kw)
+
+            reset_peak()
+            for threshold in configs:
+                read, restore = _count_bas(slam_module)
+                zero()
+                try:
+                    _sync(torch, dev)
+                    t0 = time.perf_counter()
+                    result = slam(threshold)
+                    _sync(torch, dev)
+                    seconds = time.perf_counter() - t0
+                finally:
+                    bas = read()
+                    restore()
+                rec[f"slam_{threshold}"] = dict(
+                    ate=port.evaluate_ate(result, gt_r, gt_t, device=dev), bas=list(bas),
+                    launches=counts(), seconds=seconds,
+                    landmarks=int(result.landmark_valid.sum()),
+                    digest=_digest(torch, torch.from_numpy(result.rotations),
+                                   torch.from_numpy(result.translations)))
+            prof = StageProfile()
+            slam(0, profile=prof)
+            rec["slam_0"]["stages"] = _stage_line(prof.report(total_frames=len(frames)))
+            rec["slam_0"]["peak_gib"] = peak_gib()
+
+            read, restore = _count_bas(slam_module)
+            zero()
+            steps = []
+            try:
+                sess = port.SlamSession(k_mat, recipe["sift_cfg"], configs[0], mesh=mesh,
+                                        device=dev, **track)
+                for image in frames:
+                    t0 = time.perf_counter()
+                    if sess.add_frame(image) is not None:
+                        steps.append(1e3 * (time.perf_counter() - t0))
+                streamed = sess.finalize()
+            finally:
+                bas = read()
+                restore()
+            rec["session"] = dict(
+                ate=port.evaluate_ate(streamed, gt_r, gt_t, device=dev), bas=list(bas),
+                launches=counts(), step_ms=steps,
+                digest=_digest(torch, torch.from_numpy(streamed.rotations),
+                               torch.from_numpy(streamed.translations)))
+
+        # (e) config[3]'s orbit, every BA sharded.
+        if spec["orbit_frames"]:
+            seq = _orbit_sequence(synthetic, spec["orbit_frames"])
+            read, restore = _count_bas(slam_module)
+            try:
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat,
+                                      port.SlamConfig(dist_ba_min_landmarks=0), mesh=mesh,
+                                      device=dev)
+                _sync(torch, dev)
+                seconds = time.perf_counter() - t0
+            finally:
+                bas = read()
+                restore()
+            rec["orbit"] = dict(
+                ate=port.evaluate_ate(orbit, seq.rotations, seq.translations, device=dev),
+                bas=list(bas), seconds=seconds, landmarks=int(orbit.landmark_valid.sum()),
+                digest=_digest(torch, torch.from_numpy(orbit.rotations),
+                               torch.from_numpy(orbit.translations)))
+
+        if on_card:
+            # Memory this process ever allocated on each card: nothing but
+            # on its own.
+            rec["peak_gib_by_card"] = [torch.cuda.max_memory_allocated(c) / 2**30
+                                       for c in range(torch.cuda.device_count())]
+            rec["nccl"] = str(torch.cuda.nccl.version())
+            rec["rebuilt"] = sorted(set(os.listdir(_build.BUILD_DIR)) - built)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _write_spec(workdir: str, spec: dict) -> None:
+    import os
+
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+
+
+def _read_ranks(workdir, world: int) -> list:
+    """The ``rank<r>.json`` records of :func:`_shard_rank`, in rank order."""
+    import os
+
     ranks = []
     for r in range(world):
-        with open(os.path.join(work, f"rank{r}.json")) as f:
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    gathered = np.load(os.path.join(work, "frontend.npz"))
-    valid = want["valid"]
-    valid_same = np.array_equal(gathered["valid"], valid)
-    diffs = {k: float(np.abs(gathered[k][valid] - want[k][valid]).max())
-             for k in ("abs_x", "abs_y", "descriptor")}
-    _say(
-        f"sharding (b), world {world} (gloo, every rank on {dev}), spawned in "
-        f"{spawn_seconds:.1f} s: the same {batch} frames, {batch // world} a rank: launches "
-        f"K1/K2/K3 by rank {[r['launches'] for r in ranks]} (expected "
-        f"{[cfg.num_octaves, 2, 0]} each); gathered against detect_and_describe_batched: valid "
-        f"equal {valid_same}, max abs diff x {diffs['abs_x']:.3g}, y {diffs['abs_y']:.3g}, "
-        f"descriptors {diffs['descriptor']:.3g} (bar {SHARD_ATOL}); K1/K2 vs plain on each "
-        f"rank's share: DoG and stacks {max(r['octave_err'] for r in ranks):.3g}, window samples "
-        f"{max(r['sample_err'] for r in ranks):.3g}, slots "
-        f"{min(r['slots_same'] for r in ranks):.6f}; frontend ms by rank "
-        f"{[round(r['frontend_ms'], 2) for r in ranks]} (readings) [{smi}]"
-    )
-    for r in ranks:
-        for i, n in enumerate(r["launches"]):
+    return ranks
+
+
+def _share_references(torch, port, dev, images, share: int, blurs) -> dict:
+    """The single-device references of :func:`_shard_rank`'s frontend legs:
+    ``detect_and_describe_batched`` of each ``share``-frame share of
+    ``images`` on ``dev``, for each of ``blurs``. Returns a dict: ``cfg``;
+    per blur the SHA-256 of each concatenated field (``digests``), the
+    largest rise in device memory of one share's call (``share_rise``) and
+    the bytes of one share's result (``share_bytes``); the first share's
+    result (``first_share``) and the concatenated fields (``fused``) on the
+    fused path."""
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    on_card = dev.type == "cuda"
+    ref = dict(cfg=cfg, digests={}, share_rise={}, share_bytes={})
+    for blur in blurs:
+        parts, rise, n_bytes = [], 0, 0
+        for r in range(len(images) // share):
+            frames = torch.from_numpy(images[r * share:(r + 1) * share])
+            port.detect_and_describe_batched(frames, cfg, blur, device=dev)  # warm-up
+            _sync(torch, dev)
+            if on_card:
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            parts.append(port.detect_and_describe_batched(frames, cfg, blur, device=dev))
+            _sync(torch, dev)
+            if on_card:
+                rise = max(rise, torch.cuda.max_memory_allocated(dev) - before)
+            n_bytes = max(n_bytes, sum(t.numel() * t.element_size()
+                                       for t in _described_fields(parts[-1]).values()))
+        fields = {name: torch.cat([_described_fields(p)[name] for p in parts])
+                  for name in _described_fields(parts[0])}
+        ref["digests"][blur] = {name: _digest(torch, t) for name, t in fields.items()}
+        ref["share_rise"][blur], ref["share_bytes"][blur] = rise, n_bytes
+        if blur == "fused":
+            ref["first_share"], ref["fused"] = parts[0], fields
+        del parts, fields
+    return ref
+
+
+def _slam_launches(recipe, frames: int, world: int):
+    """``((K1, K2, K3) of run_slam_from_images, (K1, K2, K3) of
+    SlamSession)`` on ``frames`` frames of ``recipe`` with a mesh of
+    ``world`` ranks, on each rank: one K1 per octave and two K2 per frontend
+    chunk of ``SLAM_CHUNK`` frames a rank; the session describes each
+    window it solves, once."""
+    octaves = recipe["sift_cfg"].num_octaves
+    chunks = -(-frames // (SLAM_CHUNK * world))
+    start, win = 2, recipe["slam_cfg"].ba_interval
+    calls = sum(1 for t in range(1, frames + 1) if t >= start + win and (t - start) % win == 0)
+    calls += (frames - start) % win != 0
+    return (octaves * chunks, 2 * chunks, 0), (octaves * calls, 2 * calls, 0)
+
+
+def _shard_bars(torch, ranks, spec, ref, smi, label):
+    """Print and hold the bars of :func:`_shard_rank`'s records ``ranks``
+    (rank order) run by ``spec``, against the single-device references
+    ``ref``: :func:`_share_references`'s dict, and for the legs that ran
+    ``match_digest`` and ``match_ms``, ``ba`` (each problem's world-1
+    ``cost``, ``ms`` and ``peak`` bytes or ``None``), ``slam_ate``,
+    ``slam_launches`` (:func:`_slam_launches`), ``orbit_ate`` and
+    ``orbit_bas`` (BAs without a mesh). Each line starts with ``label``.
+    The sharded BA's reruns are held bit-equal on gloo and read on NCCL.
+    Returns ``(launches, octave_err, sample_err, blur_err)``: the (K1, K2,
+    K3) launches of every rank's main paths ((a), (d) and the session; (b),
+    (c) and (e) launch none) and the kernels' largest differences from their
+    plain versions there."""
+    import os
+
+    world, on_card, cfg = len(ranks), spec["device"] == "cuda", ref["cfg"]
+    nccl = "nccl" in ranks[0]["backend"]
+
+    def by_rank(fn):
+        return [fn(r) for r in ranks]
+
+    def spread(ms):
+        return f"{np.median(ms):.2f} ms (min {min(ms):.2f}, max {max(ms):.2f})"
+
+    def gib(n_gib):
+        return f"{n_gib:.3f} GiB" if n_gib is not None else "not measured"
+
+    def add(launches):
+        for i, n in enumerate(launches):
             total[i] += n
+
+    total, octave_err, sample_err, blur_err = [0, 0, 0], 0.0, 0.0, 0.0
+    _say(
+        f"{label}: {world} ranks, backend {ranks[0]['backend']}"
+        f"{', NCCL ' + ranks[0]['nccl'] if on_card and nccl else ''}; by rank: LOCAL_RANK "
+        f"{by_rank(lambda r: r['local_rank'])}, current device after make_mesh "
+        f"{by_rank(lambda r: r['current_device'])} (CUDA initialised before the mesh "
+        f"{by_rank(lambda r: r['cuda_initialized_before_mesh'])}), mesh device "
+        f"{by_rank(lambda r: r['device'])} [{smi}]"
+    )
+    if on_card:
+        _require(all(by_rank(lambda r: r["cuda_initialized_before_mesh"])),
+                 "a rank had not initialised CUDA before the mesh: the card rule went untested")
+        _require(by_rank(lambda r: r["current_device"]) == spec["cards"],
+                 f"the ranks do not sit on cards {spec['cards']} in rank order")
+        _require(all(not r["rebuilt"] for r in ranks), "a rank rebuilt the kernels")
+        others = by_rank(lambda r: [g for c, g in enumerate(r["peak_gib_by_card"])
+                                    if c != r["current_device"]])
+        _require(all(g == 0 for o in others for g in o),
+                 f"a rank allocated memory on another rank's card: {others}")
+
+    expected = {"fused": [cfg.num_octaves, 2, 0], "cuda": [0, 2, _blur_count(cfg)]}
+    for blur in spec["blurs"]:
+        legs = by_rank(lambda r: r[f"frontend_{blur}"])
+        want = ref["digests"][blur]
+        same = all(leg["digests"] == want for leg in legs)
+        differ = sorted({k for leg in legs for k, v in leg["digests"].items() if v != want[k]})
+        ms = legs[0]["ms"]
+        errs = ([max(leg["octave_err"], leg["sample_err"], leg["described_err"]) for leg in legs]
+                if blur == "fused" else [leg["blur_err"] for leg in legs])
+        _say(
+            f"{label}, frontend, blur={blur!r}: detect_and_describe_data_parallel on "
+            f"{world * spec['share']}x{spec['height']}x{spec['width']}, {spec['share']} a rank: "
+            f"launches K1/K2/K3 by rank {[leg['launches'] for leg in legs]} (expected "
+            f"{expected[blur]} each), outputs before the gather on "
+            f"{[leg['outputs_on'] for leg in legs]}, every field of the gathered result "
+            f"bit-equal to the single device's shares {same}"
+            + (f" (differing: {differ})" if differ else "")
+            + f"; {'K1/K2' if blur == 'fused' else 'K3'} vs plain on each rank's share, max abs "
+            f"diff by rank {errs}"
+            + (f", masks {min(leg['masks_same'] for leg in legs):.6f}, slots "
+               f"{min(leg['slots_same'] for leg in legs):.6f}" if blur == "fused" else "")
+            + f"; rank 0 {spread(ms)} a {world * spec['share']}-frame step over {len(ms)} "
+            f"repeats, {world * spec['share'] / (np.median(ms) / 1e3):.1f} frames/s, slowest "
+            f"rank's median {max(np.median(leg['ms']) for leg in legs):.2f} ms; peak device "
+            f"memory by rank {[gib(leg['peak_gib']) for leg in legs]} [{smi}]"
+        )
+        _require(same, f"{label}: the frontend ({blur}) differs from the single device's")
+        _require(max(errs) == 0.0, f"{label}: a kernel differs from its plain version ({blur})")
+        if blur == "fused":
+            _require(all(leg["masks_same"] == 1.0 and leg["slots_same"] == 1.0 for leg in legs),
+                     f"{label}: masks or slots differ from the plain path's on a rank")
+            octave_err = max(octave_err, *(leg["octave_err"] for leg in legs))
+            sample_err = max(sample_err, *(leg["sample_err"] for leg in legs))
+        else:
+            blur_err = max(blur_err, *errs)
         if on_card:
-            _require(r["launches"] == [cfg.num_octaves, 2, 0],
-                     f"rank {r['rank']} launched K1/K2/K3 {r['launches']} times")
-            _require(not r["rebuilt"], f"rank {r['rank']} rebuilt the kernels: {r['rebuilt']}")
-        _require(max(r["octave_err"], r["sample_err"], r["described_err"]) <= MAX_ABS_ERR,
-                 f"rank {r['rank']}: a kernel differs from its plain version")
-        _require(r["masks_same"] >= MASK_AGREEMENT and r["slots_same"] >= SLOT_AGREEMENT,
-                 f"rank {r['rank']}: masks or slots differ from the plain path's")
-    _require(valid_same and max(diffs.values()) <= SHARD_ATOL,
-             "the world-2 frontend differs from the unsharded one")
-    octave_err = max(octave_err, *(r["octave_err"] for r in ranks))
-    sample_err = max(sample_err, *(r["sample_err"] for r in ranks))
+            _require(all(leg["launches"] == expected[blur] for leg in legs),
+                     f"{label}: a rank launched other counts than {expected[blur]} ({blur})")
+            _require([leg["outputs_on"] for leg in legs] == [[f"cuda:{c}"] for c in spec["cards"]],
+                     f"{label}: a rank's outputs before the gather are not on its card")
+            # Rank 0 computed one share: its rise in memory is one share's,
+            # plus the gathered result (every rank's parts and their
+            # concatenation).
+            rise = legs[0]["peak_rise_bytes"]
+            limit = ref["share_rise"][blur] + 2 * world * ref["share_bytes"][blur]
+            _require(rise <= limit, f"{label}: rank 0 rose by {rise} bytes on its card, one "
+                     f"share by {ref['share_rise'][blur]}")
+        for leg in legs:
+            add(leg["launches"])
 
-    costs = [r["ba_cost"] for r in ranks]
-    ba_rel = abs(costs[0] - world1_cost) / world1_cost
-    _say(
-        f"sharding (b): distributed_bundle_adjust on the same problem: cost by rank {costs} "
-        f"({ba_rel:.3g} relative of world 1's), rms {ranks[0]['ba_rms']:.3f} px, reruns "
-        f"bit-equal {[r['ba_rerun_equal'] for r in ranks]}; ms per LM iteration by rank "
-        f"{[round(r['ba_ms_per_iteration'], 2) for r in ranks]} (readings) [{smi}]"
-    )
-    _require(len(set(costs)) == 1, "the ranks' BA costs differ")
-    _require(ba_rel <= BA_SCATTER_RTOL, "the world-2 BA ends at another cost than world 1's")
-    _require(all(r["ba_rerun_equal"] for r in ranks), "a world-2 BA rerun differs")
+    if spec["keyframes"]:
+        m = by_rank(lambda r: r["match"])
+        _say(
+            f"{label}, matching: match_against_keyframes_sharded, frame 0's slots against "
+            f"{spec['keyframes']} keyframes, {-(-spec['keyframes'] // world)} a rank: "
+            f"{m[0]['matches']} matches, index, distance and valid bit-equal to the world-1 "
+            f"vmap(match_descriptors) by rank {[x['digest'] == ref['match_digest'] for x in m]}; "
+            f"rank 0 {spread(m[0]['ms'])} (world 1: {ref['match_ms']:.2f} ms) [{smi}]"
+        )
+        _require(all(x["digest"] == ref["match_digest"] for x in m),
+                 f"{label}: sharded matching differs from the world-1 vmap")
 
-    o = ranks[0]
-    _say(
-        f"sharding (b): config[3]'s orbit ({orbit_frames} frames) through run_slam(mesh=...), "
-        f"dist_ba_min_landmarks=0: valid landmarks {o['orbit_landmarks']} (bar > "
-        f"{ORBIT_MIN_LANDMARKS}), ATE {o['orbit_ate']:.4f} (bars: < {ORBIT_ATE}, within "
-        f"{SLAM_ATE_GAP} of phase 15's {refs['orbit_ate']:.4f}), BAs single/sharded by rank "
-        f"{[r['orbit_bas'] for r in ranks]} (without a mesh: {refs['orbit_bas']}), every rank's "
-        f"trajectory bit-equal to rank 0's {[r['orbit_same_on_every_rank'] for r in ranks]}; "
-        f"seconds by rank {[round(r['orbit_seconds'], 3) for r in ranks]} (readings); peak "
-        f"device memory by rank {[round(r.get('peak_gib', float('nan')), 3) for r in ranks]} GiB "
-        f"[{smi}]"
+    for name, c, l, opc in spec["ba"]:
+        b, want = by_rank(lambda r: r[f"ba_{name}"]), ref["ba"][name]
+        rel = abs(b[0]["cost"] - want["cost"]) / want["cost"]
+        same = all(x["digest"] == b[0]["digest"] for x in b)
+        reruns = [x["rerun_equal"] for x in b]
+        _say(
+            f"{label}, BA: distributed_bundle_adjust, {c} cameras x {l} landmarks x {c * opc} "
+            f"observations, {BA_ITERATIONS} LM iterations: cost {b[0]['cost']:.3f} against world "
+            f"1's {want['cost']:.3f} ({rel:.3g} relative, bar {BA_SCATTER_RTOL}), rms "
+            f"{b[0]['rms']:.3f} px, every rank bit-equal to rank 0 {same}, second run bit-equal "
+            f"by rank {reruns}"
+            + ("" if all(reruns) else
+               f" (max abs diff {max(x['rerun_max_diff'] for x in b):.3g}; NCCL "
+               f"{b[0].get('nccl')}, NCCL_ALGO {os.environ.get('NCCL_ALGO', 'unset: NCCL chose')})")
+            + f"; ms per LM iteration by rank {[round(x['ms_per_iteration'], 2) for x in b]} "
+            f"(world 1: {want['ms']:.2f}); peak device memory by rank "
+            f"{[gib(x['peak_gib']) for x in b]} (world 1: "
+            f"{gib(None if want['peak'] is None else want['peak'] / 2**30)}) [{smi}]"
+        )
+        _require(rel <= BA_SCATTER_RTOL, f"{label}: the BA ({name}) ends at another cost")
+        _require(b[0]["rms"] <= BA_MAX_RMS_PX, f"{label}: the BA ({name}): rms above 1 px")
+        _require(same, f"{label}: the ranks' BA results differ ({name})")
+        if not nccl:
+            _require(all(reruns), f"{label}: a rerun of the BA ({name}) differs")
+
+    if spec["slam_frames"]:
+        runs, session = ref["slam_launches"]
+        for key in [k for k in ranks[0] if k.startswith("slam_")]:
+            s = by_rank(lambda r: r[key])
+            same = all(x["digest"] == s[0]["digest"] for x in s)
+            _say(
+                f"{label}, SLAM: run_slam_from_images(mesh=...) on phase 15's gated sequence "
+                f"({spec['slam_frames']} x {spec['height']}x{spec['width']}), "
+                f"dist_ba_min_landmarks={key[5:]}: BAs single/sharded {s[0]['bas']}, launches "
+                f"K1/K2/K3 by rank {[x['launches'] for x in s]} (expected {list(runs)} each), "
+                f"valid landmarks {s[0]['landmarks']}, ATE {s[0]['ate']:.4f} (bar: within "
+                f"{SLAM_ATE_GAP} of the single device's {ref['slam_ate']:.4f}), trajectories "
+                f"bit-equal across ranks {same}; {1e3 * s[0]['seconds']:.1f} ms, "
+                f"{spec['slam_frames'] / s[0]['seconds']:.2f} frames/s"
+                + (f"; stages (profiled run) {s[0]['stages']}; peak device memory by rank "
+                   f"{[gib(x['peak_gib']) for x in s]}" if key == "slam_0" else "")
+                + f" [{smi}]"
+            )
+            _require(abs(s[0]["ate"] - ref["slam_ate"]) < SLAM_ATE_GAP,
+                     f"{label}: SLAM ({key}): ATE far from the single device's")
+            _require(same, f"{label}: SLAM ({key}): the ranks' trajectories differ")
+            if on_card:
+                _require(all(x["launches"] == list(runs) for x in s),
+                         f"{label}: SLAM ({key}): a rank launched other counts than {runs}")
+            for x in s:
+                add(x["launches"])
+        _require(ranks[0]["slam_0"]["bas"][0] == 0 and ranks[0]["slam_0"]["bas"][1] > 0,
+                 f"{label}: at threshold 0 not every BA was sharded")
+        sess = by_rank(lambda r: r["session"])
+        steps = sess[0]["step_ms"]
+        _say(
+            f"{label}, session: SlamSession(mesh=...) at threshold 0 over the same frames: BAs "
+            f"single/sharded {sess[0]['bas']}, launches K1/K2/K3 by rank "
+            f"{[x['launches'] for x in sess]} (expected {list(session)} each), ATE "
+            f"{sess[0]['ate']:.4f} (bar: within {SLAM_ATE_GAP} of the batch run's "
+            f"{ranks[0]['slam_0']['ate']:.4f}), bit-equal to the batch run "
+            f"{sess[0]['digest'] == ranks[0]['slam_0']['digest']}, ranks bit-equal "
+            f"{all(x['digest'] == sess[0]['digest'] for x in sess)}; window step median "
+            f"{np.median(steps):.1f} ms, max {max(steps):.1f} ms over {len(steps)} steps [{smi}]"
+        )
+        _require(all(x["digest"] == sess[0]["digest"] for x in sess),
+                 f"{label}: the ranks' sessions differ")
+        _require(abs(sess[0]["ate"] - ranks[0]["slam_0"]["ate"]) < SLAM_ATE_GAP,
+                 f"{label}: the session's ATE is far from the batch run's")
+        if on_card:
+            _require(all(x["launches"] == list(session) for x in sess),
+                     f"{label}: a rank's session launched other counts than {session}")
+        for x in sess:
+            add(x["launches"])
+
+    if spec["orbit_frames"]:
+        o = by_rank(lambda r: r["orbit"])
+        _say(
+            f"{label}, orbit: config[3]'s orbit ({spec['orbit_frames']} frames) through "
+            f"run_slam(mesh=...), dist_ba_min_landmarks=0: BAs single/sharded {o[0]['bas']} "
+            f"(without a mesh: {ref['orbit_bas']}), valid landmarks {o[0]['landmarks']} (bar > "
+            f"{ORBIT_MIN_LANDMARKS}), ATE {o[0]['ate']:.4f} (bars: < {ORBIT_ATE}, within "
+            f"{SLAM_ATE_GAP} of the single device's {ref['orbit_ate']:.4f}), trajectories "
+            f"bit-equal across ranks {all(x['digest'] == o[0]['digest'] for x in o)}; seconds by "
+            f"rank {[round(x['seconds'], 3) for x in o]} [{smi}]"
+        )
+        _require(o[0]["landmarks"] > ORBIT_MIN_LANDMARKS, f"{label}: config[3]: too few landmarks")
+        _require(o[0]["ate"] < ORBIT_ATE and abs(o[0]["ate"] - ref["orbit_ate"]) < SLAM_ATE_GAP,
+                 f"{label}: config[3]: ATE off its bars")
+        _require(all(x["bas"] == [0, ref["orbit_bas"]] for x in o),
+                 f"{label}: config[3]: not every BA was sharded")
+        _require(all(x["digest"] == o[0]["digest"] for x in o),
+                 f"{label}: config[3]: the ranks differ")
+    return tuple(total), octave_err, sample_err, blur_err
+
+
+def _run_ranks(cmd, cwd, log_path, timeout) -> int:
+    """Run ``cmd`` in a session of its own, its output into ``log_path``;
+    past ``timeout`` seconds kill the whole session (the launcher and every
+    rank). Returns the exit code."""
+    import os
+    import signal
+
+    with open(log_path, "w") as log:
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True, env=env)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            return 124
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH, HEIGHT),
+                     ba_sizes=(SHARD_BA, BA_LARGE), slam_frames=SLAM_FRAMES,
+                     orbit_frames=ORBIT_FRAMES, keyframes=MULTICARD_KEYFRAMES,
+                     repeats=MULTICARD_REPEATS, timeout=MULTICARD_TIMEOUT_S):
+    """Phase 20: the sharded paths across cards, one rank a card. ``world``
+    (default: min(4, cards)) ranks of :func:`_shard_rank`, started by
+    ``python -m torch.distributed.run --standalone``: NCCL, rank r on
+    ``cuda:r`` (on the CPU, for a rehearsal: gloo). The single-card
+    references run in this process on ``dev`` first, from the same inputs:
+    (a) ``detect_and_describe_batched`` of each ``batch``-frame share with
+    ``blur="fused"`` and ``"cuda"``, (b) ``vmap(match_descriptors)`` over the
+    keyframes, (c) ``distributed_bundle_adjust`` at world 1 on each problem
+    of ``ba_sizes``, (d) ``run_slam_from_images`` on phase 15's gated
+    sequence, (e) config[3]'s orbit. Then the ranks and their bars
+    (:func:`_shard_bars`); then (f) the dry run
+    ``tools/torch_dryrun_multichip.py --world <world>``; then, on the card,
+    (g) ``detect_and_describe_batched(device="cuda:<last card>")`` in this
+    process. Returns ``(launches, octave_err, sample_err, blur_err)``: the
+    (K1, K2, K3) launches of the ranks' main paths ((a), (d) and the
+    session, summed over the ranks) and of (g), and the kernels' largest
+    differences from their plain versions there."""
+    import datetime
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import (
+        distributed_bundle_adjust,
+        initialize_multihost,
+        make_mesh,
     )
-    _require(o["orbit_landmarks"] > ORBIT_MIN_LANDMARKS, "sharded config[3]: too few landmarks")
-    _require(o["orbit_ate"] < ORBIT_ATE, "sharded config[3]: ATE above the bar")
-    _require(abs(o["orbit_ate"] - refs["orbit_ate"]) < SLAM_ATE_GAP,
-             "sharded config[3]: ATE far from the run without a mesh")
-    _require(all(r["orbit_bas"] == [0, refs["orbit_bas"]] for r in ranks),
-             "sharded config[3]: not every BA was sharded")
-    _require(all(r["orbit_same_on_every_rank"] for r in ranks), "the ranks' trajectories differ")
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    on_card = dev.type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    world = min(MULTICARD_WORLD, cards) if world is None else world
+    if on_card:
+        _require(2 <= world <= cards, f"phase 20 at world {world} needs as many cards, has {cards}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_multicard")
     shutil.rmtree(work, ignore_errors=True)
-    return tuple(total), octave_err, sample_err
+    os.makedirs(work)
+    width, height = size
+    keyframes = min(keyframes, world * batch - 1)
+
+    def gib(n_bytes):
+        return f"{n_bytes / 2**30:.3f} GiB" if n_bytes is not None else "not measured"
+
+    # --- the single-card references, in this process on ``dev`` ---
+    images = _make_batch(world * batch, height, width)
+    ref = _share_references(torch, port, dev, images, batch, ("fused", "cuda"))
+    fused = ref.pop("fused")
+    q, qv = fused["descriptor"][0], fused["valid"][0]
+
+    def one(d_b, v_b):
+        m = port.match_descriptors(q, qv, d_b, v_b, device=dev)
+        return m.index, m.distance, m.valid
+
+    kd, kv = fused["descriptor"][1:1 + keyframes], fused["valid"][1:1 + keyframes]
+    ref["match_digest"] = _digest(torch, *torch.func.vmap(one)(kd, kv))
+    ref["match_ms"] = _host_ms(torch, lambda: torch.func.vmap(one)(kd, kv), repeats, dev)
+    n_slots = q.shape[0]
+    del fused, q, qv, kd, kv
+
+    ref["ba"] = {}
+    initialize_multihost(f"file://{os.path.join(work, 'store1')}", 1, 0,
+                         backend="nccl" if on_card else "gloo",
+                         timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1, device_type=dev.type)
+        for name, (c, l, opc) in zip(("dense", "large"), ba_sizes):
+            state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
+            if name == "dense":
+                distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            _, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
+            _sync(torch, dev)
+            ref["ba"][name] = dict(
+                cost=cost.item(), ms=1e3 * (time.perf_counter() - t0) / BA_ITERATIONS,
+                peak=torch.cuda.max_memory_allocated(dev) if on_card else None)
+            del state, obs
+    finally:
+        dist.destroy_process_group()
+
+    recipe = slam_bench_recipe(port, slam_frames, width, height)
+    track = dict(reassoc_window=recipe["reassoc_window"], **recipe["solved"])
+    single = port.run_slam_from_images(recipe["images"], recipe["k_mat"], recipe["sift_cfg"],
+                                       recipe["slam_cfg"], frontend_chunk=SLAM_CHUNK, device=dev,
+                                       **track)
+    ref["slam_ate"] = port.evaluate_ate(single, recipe["gt_r"], recipe["gt_t"], device=dev)
+    ref["slam_launches"] = _slam_launches(recipe, slam_frames, world)
+    seq = _orbit_sequence(synthetic, orbit_frames)
+    read, restore = _count_bas(slam_module)
+    try:
+        orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat, port.SlamConfig(), device=dev)
+    finally:
+        ref["orbit_bas"] = read()[0]
+        restore()
+    ref["orbit_ate"] = port.evaluate_ate(orbit, seq.rotations, seq.translations, device=dev)
+    del recipe, single, orbit
+    _say(
+        f"multicard: single-card references on {dev}: {world} shares of {batch}x{height}x{width} "
+        f"through detect_and_describe_batched (one share's rise in device memory: fused "
+        f"{gib(ref['share_rise']['fused'] if on_card else None)}, cuda "
+        f"{gib(ref['share_rise']['cuda'] if on_card else None)}), vmap(match_descriptors) over "
+        f"{keyframes} keyframes x {n_slots} slots {ref['match_ms']:.2f} ms, "
+        f"distributed_bundle_adjust at world 1: "
+        + ", ".join(f"{n} cost {v['cost']:.1f} {v['ms']:.2f} ms per LM iteration, peak "
+                    f"{gib(v['peak'])}" for n, v in ref["ba"].items())
+        + f"; gated SLAM ATE {ref['slam_ate']:.4f}, config[3] ATE {ref['orbit_ate']:.4f} with "
+        f"{ref['orbit_bas']} BAs [{smi}]"
+    )
+
+    # --- the ranks ---
+    spec = dict(device=dev.type,
+                cards=list(range(world)) if on_card else None, share=batch, height=height,
+                width=width, blurs=["fused", "cuda"], repeats=repeats, keyframes=keyframes,
+                ba=[[n, *s] for n, s in zip(("dense", "large"), ba_sizes)],
+                slam_frames=slam_frames, orbit_frames=orbit_frames)
+    _write_spec(work, spec)
+    if on_card:
+        torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), "--no-python", sys.executable, "-c",
+           f"import chip_smoke; chip_smoke._shard_rank(None, {work!r})"]
+    log = os.path.join(work, "ranks.log")
+    t0 = time.perf_counter()
+    rc = _run_ranks(cmd, root, log, timeout)
+    ranks_seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-8000:], flush=True)
+    _require(rc == 0, f"the {world} ranks exited {rc} (their log above)")
+    _say(f"multicard: {world} ranks by torchrun ran in {ranks_seconds:.1f} s")
+    total, octave_err, sample_err, blur_err = _shard_bars(
+        torch, _read_ranks(work, world), spec, ref, smi, "multicard")
+    total = list(total)
+
+    # (f) the JAX package's dry run, ported.
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_dryrun_multichip.py"),
+         "--world", str(world), "--device", dev.type],
+        cwd=root, capture_output=True, text=True, timeout=timeout,
+    )
+    line = next((x for x in proc.stdout.splitlines() if x.startswith("dryrun_multichip:")), "")
+    _say(f"multicard (f): tools/torch_dryrun_multichip.py --world {world} --device {dev.type}: "
+         f"exit {proc.returncode}; {line}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+    _require(proc.returncode == 0 and "every rank's trajectory bit-equal True" in line,
+             "the dry run failed")
+
+    # (g) one process on a card other than 0.
+    if on_card:
+        cfg, first_share = ref["cfg"], ref.pop("first_share")
+        other = torch.device("cuda", cards - 1)
+        frames = torch.from_numpy(images[:batch])
+        torch.cuda.synchronize(0)
+        held = torch.cuda.memory_allocated(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        torch.cuda.reset_peak_memory_stats(other)
+        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+        got = port.detect_and_describe_batched(frames, cfg, device=f"cuda:{other.index}")
+        torch.cuda.synchronize(other)
+        launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches)
+        total = [a + b for a, b in zip(total, launches)]
+        fields = _described_fields(got)
+        on_other = all(t.device == other for t in fields.values())
+        same = all(torch.equal(t.cpu(), getattr(first_share, name).cpu())
+                   for name, t in fields.items())
+        card0_peak = torch.cuda.max_memory_allocated(0)
+        _say(
+            f"multicard (g): detect_and_describe_batched(device='{other}') on {batch}x{height}x"
+            f"{width} in this process after the runs on cuda:0: launches K1/K2/K3 {launches}, "
+            f"outputs on {other} {on_other}, bit-equal to cuda:0's {same}; card 0 allocated "
+            f"{held} bytes before and at most {card0_peak} during the call, card "
+            f"{other.index} peaked at {gib(torch.cuda.max_memory_allocated(other))}; current "
+            f"device {torch.cuda.current_device()} [{smi}]"
+        )
+        _require(launches == (cfg.num_octaves, 2, 0), f"cuda:{other.index}: launches {launches}")
+        _require(on_other and same, f"the run on {other} differs from cuda:0's")
+        _require(card0_peak == held, f"the run on {other} allocated on card 0")
+        _require(torch.cuda.max_memory_allocated(other) > 0, f"nothing ran on {other}")
+        del got, fields, first_share
+    else:
+        _say("multicard (g): a card other than 0 needs the card; not run on the CPU")
+    shutil.rmtree(work, ignore_errors=True)
+    return tuple(total), octave_err, sample_err, blur_err
 
 
 def cli_records(outdir):
@@ -2544,10 +3186,11 @@ def main() -> int:
 
     # --- 1. device ------------------------------------------------------
     _require(torch.cuda.is_available(), "no CUDA device")
-    smi = subprocess.run(
+    smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = smi_lines[0]
     _say(smi)
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -3164,6 +3807,16 @@ def main() -> int:
     blur_path_launches, blur_path_sample_err = _phase_blur_paths(torch, port, smi, device)
     sample_err = max(sample_err, blur_path_sample_err)
     orbax_launches = _phase_orbax(torch, port, smi, device, slam_refs["orbit_ate"])
+    if torch.cuda.device_count() >= 2:
+        multi_launches, multi_octave_err, multi_sample_err, multi_blur_err = _phase_multicard(
+            torch, port, "; ".join(smi_lines), device
+        )
+        max_err, sample_err = max(max_err, multi_octave_err), max(sample_err, multi_sample_err)
+        blur_err = max(blur_err, multi_blur_err)
+    else:
+        multi_launches = (0, 0, 0)
+        _say("phase 20 (the sharded paths across cards, one NCCL rank a card) needs several "
+             "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -3176,7 +3829,7 @@ def main() -> int:
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
                 + stream_launches[0] + surface_launches[0] + shard_launches[0]
-                + blur_path_launches[0] + orbax_launches[0],
+                + blur_path_launches[0] + orbax_launches[0] + multi_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -3191,7 +3844,7 @@ def main() -> int:
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
                 + stream_launches[1] + surface_launches[1] + shard_launches[1]
-                + blur_path_launches[1] + orbax_launches[1],
+                + blur_path_launches[1] + orbax_launches[1] + multi_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -3206,7 +3859,7 @@ def main() -> int:
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
                 + surface_launches[2] + shard_launches[2] + blur_path_launches[2]
-                + orbax_launches[2],
+                + orbax_launches[2] + multi_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

@@ -717,29 +717,57 @@ def test_sharded_slam_and_session_on_card_at_world_1(device, nccl_mesh):
 
 def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path):
     """Two gloo ranks on the one card, 2 frames each (``chip_smoke.py`` phase
-    17 (b)'s rank): each launches K1 per octave and K2 per stage, K1 and K2
-    equal their plain versions on its share, and the gathered result equals
-    the batched frontend's within 1e-4."""
-    import json
-
+    17 (b)'s rank and bars): each launches K1 per octave and K2 per stage,
+    K1 and K2 equal their plain versions on its share, the ranks sit on the
+    parent's card with their outputs there, and the gathered result equals
+    each share's batched frontend bit for bit."""
     import torch.multiprocessing as mp
 
-    spec = dict(device="cuda", batch=4, height=96, width=128, full=False)
-    mp.spawn(chip_smoke._sharding_rank, args=(2, str(tmp_path), spec), nprocs=2)
-    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
-    want = port.detect_and_describe_batched(
-        torch.from_numpy(chip_smoke._make_batch(4, 96, 128)), cfg)
-    got = np.load(tmp_path / "frontend.npz")
-    valid = want.valid.cpu().numpy()
-    assert np.array_equal(got["valid"], valid) and valid.sum() > 0
-    for key in ("abs_x", "abs_y", "descriptor"):
-        diff = np.abs(got[key][valid] - getattr(want, key).cpu().numpy()[valid]).max()
-        assert diff <= chip_smoke.SHARD_ATOL, key
-    for rank in range(2):
-        rec = json.loads((tmp_path / f"rank{rank}.json").read_text())
-        assert rec["launches"] == [4, 2, 0], rec
-        assert max(rec["octave_err"], rec["sample_err"], rec["described_err"]) == 0.0, rec
-        assert rec["slots_same"] == 1.0 and not rec["rebuilt"], rec
+    card = torch.cuda.current_device()
+    spec = dict(world=2, device="cuda", cards=[card, card],
+                share=2, height=96, width=128, blurs=["fused"], repeats=1, keyframes=0, ba=[],
+                slam_frames=0, orbit_frames=0)
+    chip_smoke._write_spec(str(tmp_path), spec)
+    mp.spawn(chip_smoke._shard_rank, args=(str(tmp_path),), nprocs=2)
+    ref = chip_smoke._share_references(torch, port, torch.device("cuda", card),
+                                       chip_smoke._make_batch(4, 96, 128), 2, ("fused",))
+    launches, octave_err, sample_err, _ = chip_smoke._shard_bars(
+        torch, chip_smoke._read_ranks(str(tmp_path), 2), spec, ref, "", "two gloo ranks")
+    assert launches == (8, 4, 0)
+    assert octave_err == sample_err == 0.0
+
+
+# --- one process on a card other than 0 ---------------------------------------------
+
+
+@pytest.mark.parametrize("blur", ["fused", "cuda"])
+def test_a_card_other_than_0_in_one_process(device, blur):
+    """``device="cuda:<last card>"`` after a run on card 0, whose constants
+    the per-device caches (taps, grids, offsets) already hold: the kernels
+    launch on that card (K1/K2/K3 counts, outputs there), the result equals
+    card 0's bit for bit, and nothing is allocated on card 0, not even for
+    a moment (``chip_smoke.py`` phase 20 (g) at 64 × 480×640)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA devices or more, {cards} visible")
+    other = torch.device("cuda", cards - 1)
+    images = torch.from_numpy(chip_smoke._make_batch(2, 96, 128))
+    cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=128)
+    want = port.detect_and_describe_batched(images, cfg, blur, device="cuda:0")
+    torch.cuda.synchronize(0)
+    held = torch.cuda.memory_allocated(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    before = _counts()
+    got = port.detect_and_describe_batched(images, cfg, blur, device=str(other))
+    torch.cuda.synchronize(other)
+    launched = tuple(a - b for a, b in zip(_counts(), before))
+    assert launched == ((3, 2, 0) if blur == "fused" else (0, 2, chip_smoke._blur_count(cfg)))
+    assert torch.cuda.max_memory_allocated(0) == held
+    assert int(got.valid.sum()) > 0
+    for f in dataclasses.fields(got):
+        value = getattr(got, f.name)
+        assert value.device == other, f.name
+        assert torch.equal(value.cpu(), getattr(want, f.name).cpu()), f.name
 
 
 # --- the blur-by-blur frontend and the pooled refinement on the card ----------

@@ -194,42 +194,39 @@ def _ba_out(ranks, name):
     return _out(ranks, f"bundle_adjust/{name}.")
 
 
-def test_distributed_ba_matches_single_device(ranks):
-    got = _ba_out(ranks, "match")
-    single, cost_s = _single("match")
-    # The same algorithm and damping schedule; the sums over the ranks
-    # reassociate, which allows a small drift.
-    np.testing.assert_allclose(got["translations"], single.translations.numpy(), atol=1e-6)
-    np.testing.assert_allclose(got["points"], single.points.numpy(), atol=1e-5)
-    assert abs(float(got["cost"]) - cost_s) < 1e-6 * max(1.0, cost_s)
+# The bars below hold a run of any world size (here 2; 4 in
+# tests/test_torch_multicard.py).
+
+
+def check_ba(ranks, name):
+    """The sharded BA against the single-device BA on ``BA_PROBLEMS[name]``:
+    the same algorithm and damping schedule, whose sums over the ranks
+    reassociate, which allows a small drift. ``match``: poses within 1e-6,
+    points within 1e-5, cost within 1e-6 relative; ``huber`` (the same IRLS
+    weights and accept-test cost): poses and cost within 1e-5; ``converge``:
+    RMS below 1e-3; ``pad`` (93 landmarks, padded to the world): RMS below
+    1 px. Every problem keeps its landmark count and reruns bit-equal."""
+    got = _ba_out(ranks, name)
     assert got["rerun_equal"], "two runs of the sharded BA differ"
+    assert got["points"].shape[0] == BA_PROBLEMS[name][2]
+    if name in ("match", "huber"):
+        single, cost_s = _single(name)
+        tol = 1e-6 if name == "match" else 1e-5
+        np.testing.assert_allclose(got["translations"], single.translations.numpy(), atol=tol)
+        if name == "match":
+            np.testing.assert_allclose(got["points"], single.points.numpy(), atol=1e-5)
+        assert abs(float(got["cost"]) - cost_s) < tol * max(1.0, cost_s)
+    else:
+        assert _rms(got, name) < (1e-3 if name == "converge" else 1.0)
 
 
-def test_distributed_ba_huber_matches_single_device(ranks):
-    """The robust path: the same IRLS weights and the same accept-test cost."""
-    got = _ba_out(ranks, "huber")
-    single, cost_s = _single("huber")
-    np.testing.assert_allclose(got["translations"], single.translations.numpy(), atol=1e-5)
-    assert abs(float(got["cost"]) - cost_s) < 1e-5 * max(1.0, cost_s)
-
-
-def test_distributed_ba_converges(ranks):
-    assert _rms(_ba_out(ranks, "converge"), "converge") < 1e-3
-
-
-def test_distributed_ba_landmarks_not_multiple_of_mesh(ranks):
-    """93 landmarks over 2 ranks exercises the padding."""
-    got = _ba_out(ranks, "pad")
-    assert got["points"].shape[0] == 93
-    assert _rms(got, "pad") < 1.0
-
-
-def test_distributed_ba_matches_the_reference_on_its_mesh(ranks):
-    """The port at world 2 against the JAX package's sharded BA on its 8
-    virtual devices, float64, at tests/test_distributed.py's tolerances."""
-    assert len(jax.devices()) >= 8, "conftest must provide 8 virtual devices"
-    init, obs, iterations, huber = ba_problem("match")
-    want, cost_w = jax_distributed_bundle_adjust(init, obs, jax_make_mesh(8),
+def check_ba_against_the_reference(ranks, devices):
+    """The port's sharded BA against the JAX package's on ``devices`` of
+    conftest's 8 virtual devices, float64, at tests/test_distributed.py's
+    tolerances."""
+    assert len(jax.devices()) >= devices, "conftest must provide 8 virtual devices"
+    init, obs, iterations, _ = ba_problem("match")
+    want, cost_w = jax_distributed_bundle_adjust(init, obs, jax_make_mesh(devices),
                                                  num_iterations=iterations)
     got = _ba_out(ranks, "match")
     assert got["points"].dtype == np.float64
@@ -238,34 +235,21 @@ def test_distributed_ba_matches_the_reference_on_its_mesh(ranks):
     assert abs(float(got["cost"]) - float(cost_w)) < 1e-6 * max(1.0, float(cost_w))
 
 
-def test_data_parallel_frontend_matches_single(ranks):
-    got = _out(ranks, "frontend/")
+def check_frontend(ranks, blur):
+    """The data-parallel frontend (``blur``: ``"fused"`` or ``"separable"``,
+    which goes through to each rank's share) gathers the unsharded call's
+    result, field for field."""
+    got = _out(ranks, "frontend/" + ("" if blur == "fused" else f"{blur}."))
     ref = port.detect_and_describe_batched(torch.from_numpy(frontend_images()),
-                                           port.SiftConfig(**FRONTEND_CFG), **CPU)
-    np.testing.assert_array_equal(got["valid"], ref.valid.numpy())
-    valid = ref.valid.numpy()
-    assert valid.sum() > 20, "degenerate test"
-    d_ref = ref.descriptor.numpy()[valid]
-    d_par = got["descriptor"][valid]
-    norms = np.linalg.norm(d_ref, axis=1) * np.linalg.norm(d_par, axis=1)
-    ok = norms > 1e-6
-    cos = (d_ref[ok] * d_par[ok]).sum(1) / norms[ok]
-    assert (cos > 0.999).mean() > 0.98, (cos.min(), (cos > 0.999).mean())
-
-
-def test_data_parallel_blurred_frontend_matches_single(ranks):
-    """``blur="separable"`` goes through to each rank's share: the gathered
-    result is the unsharded call's, field for field."""
-    got = _out(ranks, "frontend/separable.")
-    ref = port.detect_and_describe_batched(torch.from_numpy(frontend_images()),
-                                           port.SiftConfig(**FRONTEND_CFG), "separable", **CPU)
+                                           port.SiftConfig(**FRONTEND_CFG), blur, **CPU)
     assert ref.valid.sum() > 20, "degenerate test"
     for field in dataclasses.fields(ref):
         np.testing.assert_array_equal(got[field.name], getattr(ref, field.name).numpy(),
                                       err_msg=field.name)
 
 
-def test_sharded_keyframe_matching_matches_vmap(ranks):
+def check_keyframe_matching(ranks):
+    """Valid flags and indices of every keyframe equal ``match_descriptors``'."""
     got = _out(ranks, "keyframe_matching/")
     inp = {k: torch.from_numpy(v) for k, v in matching_inputs().items()}
     assert got["index"].shape == (8, 64)
@@ -274,6 +258,64 @@ def test_sharded_keyframe_matching_matches_vmap(ranks):
         np.testing.assert_array_equal(got["valid"][k], ref.valid.numpy())
         v = ref.valid.numpy()
         np.testing.assert_array_equal(got["index"][k][v], ref.index.numpy()[v])
+
+
+def check_slam_orbit(ranks, threshold):
+    """Composed SLAM with a mesh reproduces the single-device trajectory
+    (tests/test_slam.py:167's bars); at threshold 0 every BA is sharded, at
+    the reference's none (100 landmarks at most, far below it)."""
+    seq = orbit()
+    single = port.run_slam(seq.pixels, seq.visible, seq.k_mat,
+                           port.SlamConfig(**ORBIT_SLAM_CFG), **CPU)
+    got = _out(ranks, f"slam_orbit/orbit_{threshold}.")
+    np.testing.assert_allclose(got["translations"], single.translations, atol=5e-3)
+    ate_s = port.evaluate_ate(single, seq.rotations, seq.translations, **CPU)
+    assert abs(_ate(got, seq.rotations, seq.translations) - ate_s) < 1e-3
+    n_ba = sum(_ba_count(ranks, f"slam_orbit/orbit_{REFERENCE_THRESHOLD}."))
+    assert n_ba > 0
+    want = (n_ba, 0) if threshold == REFERENCE_THRESHOLD else (0, n_ba)
+    assert _ba_count(ranks, f"slam_orbit/orbit_{threshold}.") == want
+
+
+def check_same_bits(ranks, world, scenarios):
+    """Every rank's outputs of every scenario are rank 0's, bit for bit."""
+    _, digests = ranks
+    assert len(digests) == world
+    assert sorted(digests[0]) == sorted(scenarios)
+    for rank, got in enumerate(digests[1:], start=1):
+        assert got == digests[0], f"rank {rank} differs from rank 0"
+
+
+def test_distributed_ba_matches_single_device(ranks):
+    check_ba(ranks, "match")
+
+
+def test_distributed_ba_huber_matches_single_device(ranks):
+    check_ba(ranks, "huber")
+
+
+def test_distributed_ba_converges(ranks):
+    check_ba(ranks, "converge")
+
+
+def test_distributed_ba_landmarks_not_multiple_of_mesh(ranks):
+    check_ba(ranks, "pad")
+
+
+def test_distributed_ba_matches_the_reference_on_its_mesh(ranks):
+    check_ba_against_the_reference(ranks, 8)
+
+
+def test_data_parallel_frontend_matches_single(ranks):
+    check_frontend(ranks, "fused")
+
+
+def test_data_parallel_blurred_frontend_matches_single(ranks):
+    check_frontend(ranks, "separable")
+
+
+def test_sharded_keyframe_matching_matches_vmap(ranks):
+    check_keyframe_matching(ranks)
 
 
 def _ate(out, gt_r, gt_t):
@@ -289,20 +331,7 @@ def _ba_count(ranks, prefix):
 
 @pytest.mark.parametrize("threshold", THRESHOLDS)
 def test_slam_on_a_mesh_matches_single_device(ranks, threshold):
-    """Composed SLAM with a mesh reproduces the single-device trajectory
-    (tests/test_slam.py:167's bars); at threshold 0 every BA is sharded."""
-    seq = orbit()
-    single = port.run_slam(seq.pixels, seq.visible, seq.k_mat,
-                           port.SlamConfig(**ORBIT_SLAM_CFG), **CPU)
-    got = _out(ranks, f"slam_orbit/orbit_{threshold}.")
-    np.testing.assert_allclose(got["translations"], single.translations, atol=5e-3)
-    ate_s = port.evaluate_ate(single, seq.rotations, seq.translations, **CPU)
-    assert abs(_ate(got, seq.rotations, seq.translations) - ate_s) < 1e-3
-    n_ba = sum(_ba_count(ranks, f"slam_orbit/orbit_{REFERENCE_THRESHOLD}."))
-    assert n_ba > 0
-    # 100 landmarks at most, far below the reference's threshold.
-    want = (n_ba, 0) if threshold == REFERENCE_THRESHOLD else (0, n_ba)
-    assert _ba_count(ranks, f"slam_orbit/orbit_{threshold}.") == want
+    check_slam_orbit(ranks, threshold)
 
 
 def test_build_tracks_on_a_mesh_matches_single_device(ranks):
@@ -355,8 +384,4 @@ def test_streaming_session_on_a_mesh_matches_the_batch_run(ranks):
 
 
 def test_every_rank_returns_the_same_bits(ranks):
-    _, digests = ranks
-    assert len(digests) == WORLD
-    assert sorted(digests[0]) == sorted(SCENARIOS)
-    for rank, got in enumerate(digests[1:], start=1):
-        assert got == digests[0], f"rank {rank} differs from rank 0"
+    check_same_bits(ranks, WORLD, SCENARIOS)

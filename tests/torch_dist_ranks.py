@@ -167,6 +167,31 @@ def multihost(inp, mesh):
     )
 
 
+@scenario
+def card_exchange(inp, mesh):
+    """``parallel/multihost.py``'s exchange of every rank's card identity
+    through the group's store, as ``global_mesh`` runs it under NCCL, once
+    for each case ``inp[name]``: row 0 each rank's card index, row 1 the
+    physical card it names (its UUID); ``_require_own_cards`` must pass
+    where the physical cards differ and raise where two ranks meet on one."""
+    import torch.distributed as dist
+
+    from sift_scale_space_extrema_detection_tpu_torch.parallel import multihost
+
+    rank = dist.get_rank()
+    out = {}
+    for name in sorted(k for k in inp if k != "cfg"):
+        card, physical = (int(v) for v in inp[name][:, rank])
+        cards = multihost._rank_cards(["host", card, f"GPU-{physical}"])
+        out[f"{name}.cards"] = np.asarray([c for _, c, _ in cards])
+        try:
+            multihost._require_own_cards(cards)
+            out[f"{name}.error"] = np.asarray("")
+        except RuntimeError as exc:
+            out[f"{name}.error"] = np.asarray(str(exc))
+    return out
+
+
 def _counting(slam):
     """Count the single-device BAs of ``models/slam.py`` (a wrapper of its
     ``bundle_adjust``); returns a function that reads ``(single, sharded)``
@@ -370,11 +395,12 @@ def _read(workdir: Path):
     return outputs, json.loads((workdir / "digests.json").read_text())
 
 
-def shared_run(tmp_path_factory, tag: str, names, make_inputs, timeout: float = 300.0):
-    """:func:`run_ranks` once per test run, whichever pytest-xdist workers
-    ask for it: the first runs it under a file lock in the run's shared
-    temporary directory, the others wait and read its result (or its
-    error). ``make_inputs()`` builds the inputs."""
+def shared_run(tmp_path_factory, tag: str, names, make_inputs, timeout: float = 300.0,
+               world: int = WORLD):
+    """:func:`run_ranks` at ``world`` once per test run, whichever
+    pytest-xdist workers ask for it: the first runs it under a file lock in
+    the run's shared temporary directory, the others wait and read its
+    result (or its error). ``make_inputs()`` builds the inputs."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent  # shared by the workers of this run only
@@ -386,7 +412,7 @@ def shared_run(tmp_path_factory, tag: str, names, make_inputs, timeout: float = 
             raise RuntimeError(failed.read_text())
         if not (workdir / "digests.json").exists():
             try:
-                return run_ranks(names, make_inputs(), workdir, timeout=timeout)
+                return run_ranks(names, make_inputs(), workdir, world, timeout)
             except Exception as exc:
                 workdir.mkdir(parents=True, exist_ok=True)
                 failed.write_text(str(exc))
