@@ -210,6 +210,22 @@ Phases (any failure exits non-zero and prints no result):
     within 0.02 of the single card's. (f) ``tools/torch_dryrun_multichip.py
     --world 4``. (g) ``detect_and_describe_batched(device="cuda:3")`` in this
     process: bit-equal to ``cuda:0``'s, nothing allocated on card 0.
+21. the card's probes (``_phase_probes``; K4-K7 of ``csrc/probes.cu``, which
+    no other phase launches: their counts must be 0 here). (a) The entry
+    points as a user runs them, every count zeroed before and read after:
+    ``benchmarks.bw_probe --gb 1.0`` (write, copy and read of a 65,536 ×
+    4,096 float32 buffer, and ``torch.full`` / ``x + 0.0``) and
+    ``benchmarks.tap_probe`` at 256 and 8,192 rows; their JSON lines. (b)
+    Each kernel against its plain version on the same CUDA tensors at the
+    originals' shapes: write, copy, read and the f32 chain max abs diff 0;
+    the bf16 chains within ``tap_tolerance`` (one bf16 rounding per
+    product). (c) Kernel, plain version and library call in turns; GB/s,
+    ps/element·tap; the floating-point opcodes of the chain in ``cuobjdump
+    -sass`` (f32: 831 FADD, no FFMA; the compiler computes the 13 products
+    once) and the float32 instructions/s they give. (d)
+    K1's and K3's reach: each launch timed in phases 5 and 10, the larger
+    of its bytes over the measured copy rate and its operations (taps,
+    DoG differences, K1's scan) over the measured f32 chain's rate.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -218,6 +234,10 @@ once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s.
 The operation peak counts a fused multiply-add as two operations; the blur
 kernels may not fuse (it would change the rounding), so for them half that
 rate is the card's real ceiling. The bound keeps the published peak.
+
+``reach_ms`` (K1 and K3) is the same least time at the ceilings phase 21
+measured on this card instead of the published ones, and ``reach_by`` says
+which of the two sums is larger.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, in which every number but ``bound_ms`` was
@@ -302,6 +322,13 @@ KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
 MATMUL_ATOL = 1e-5
 PER_TRIO_CPU_FRAMES = 8  # phase 18: the batch's frames also run with device="cpu"
 ORBAX_FIXTURE = "tests/fixtures/jax_orbax"  # phase 19, beside this script
+PROBE_GB = 1.0  # phase 21: bw_probe.py's buffer, 65,536 x 4,096 float32
+TAP_LONG_ROWS = 8192  # phase 21: the tap chain also at 8,192 rows (one launch at 256 is ~launch-sized)
+# Phase 21: the bf16 tap chains' per-element bound against their plain
+# versions, in units of S = Σ|x_t·tap_t| (``tap_tolerance``): one bf16
+# rounding (2^-8) per product, and per pair sum in bf16_pair.
+BF16_BOUND = {"bf16_carry": 2.0**-8, "bf16_full": 2.0**-8, "bf16_pair": 2.0**-7}
+SASS_OPS = ("FMUL", "FADD", "FFMA", "HMUL2", "HADD2", "HFMA2")
 
 
 def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
@@ -338,7 +365,13 @@ def _octave_sigmas(cfg, octave):
 
 
 def _event_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls (the
+    host clock where there is no card: a CPU rehearsal's reading)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -3179,6 +3212,252 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     return launches
 
 
+def _scan_ops(pixels: int, n_dog: int) -> int:
+    """The octave kernel's 26-neighbour scan in operations: per DoG plane and
+    pixel 14 minima and maxima (its 3×3 neighbourhood, shared row by row),
+    per trio plane 4 more and 3 comparisons (``csrc/octave.cu``)."""
+    return pixels * (14 * n_dog + 7 * max(n_dog - 2, 0))
+
+
+def tap_tolerance(torch, x, taps, mode):
+    """Per-element bound on |kernel - plain| of the tap chain ``mode`` on
+    ``x`` with ``taps``: 0 for ``f32``. In the bf16 modes both round every
+    bf16 product and sum once (the ``_rn`` intrinsics; PyTorch computes a
+    bf16 operation in float32 and rounds it, which is the same for one
+    product or sum), so they agree in principle; the bound is that of one
+    bf16 rounding per product (and per pair sum in ``bf16_pair``) taken
+    otherwise: ``BF16_BOUND[mode]·S`` with S = Σ|x_t·tap_t| over the
+    element's 832 products, plus the float32 sums' rounding on either side."""
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.probes import NTAPS, REPS
+
+    rows = x.shape[0] - NTAPS
+    if mode == "f32":
+        return torch.zeros((rows, x.shape[1]), dtype=torch.float64, device=x.device)
+    xb, tb = x.to(torch.bfloat16).double(), taps.to(torch.bfloat16).double()
+    s = REPS * sum((xb[t : t + rows] * tb[t]).abs() for t in range(NTAPS))
+    return (BF16_BOUND[mode] + 2 * (REPS * NTAPS - 1) * 2.0**-24) * s
+
+
+def sass_mix(lib_path: str) -> dict:
+    """Floating-point opcodes of the tap-chain kernels in the built library,
+    counted in ``cuobjdump -sass``: ``{mode: {opcode: count}}``. The chain is
+    unrolled, so each count is what one thread executes."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"
+    )
+    return sass_counts(subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                                      timeout=300, check=True).stdout)
+
+
+def sass_counts(text: str) -> dict:
+    """:func:`sass_mix` of ``cuobjdump -sass``'s ``text``."""
+    import re
+
+    kernels = {"tap_f32_kernel": "f32", "tap_bf16_kernelILi1E": "bf16_carry",
+               "tap_bf16_kernelILi2E": "bf16_full", "tap_bf16_kernelILi3E": "bf16_pair"}
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+    mix, mode = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+            mode = next((m for k, m in kernels.items() if k in name), None)
+            if mode:
+                mix[mode] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        found = opcode.search(line) if mode else None
+        if found and found.group(1) in SASS_OPS:
+            mix[mode][found.group(1)] += 1
+    return mix
+
+
+def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB,
+                  long_rows=TAP_LONG_ROWS):
+    """Phase 21: the card's probes (K4-K7, ``csrc/probes.cu``) and the
+    ceilings they measure. ``octave_work`` and ``blur_work``: the (bytes,
+    operations) of each K1 and K3 launch timed in phases 5 and 10 (None: no
+    reach). Returns ``(records, reach)``: the four kernels' entries of the
+    ``kernels`` line and ``{"fused_octave": (reach_ms, by), "blur_fused":
+    (...)}`` or None."""
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import bw_probe, tap_probe
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build, probes
+
+    earlier = {p.__name__: p.launches for p in probes.PROBES}
+    _require(not any(earlier.values()), f"a probe kernel was launched in phases 1-20: {earlier}")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # (a) The entry points as a user runs them, every count zeroed before.
+    for p in probes.PROBES:
+        p.launches = 0
+    for name, main, argv in (
+        ("bw_probe", bw_probe.main, ["--gb", str(gb), "--device", dev.type]),
+        ("tap_probe", tap_probe.main, ["--device", dev.type]),
+        ("tap_probe", tap_probe.main, ["--rows", str(long_rows), "--iters", "10", "--device", dev.type]),
+    ):
+        rc, text = _quiet(main, argv)
+        _require(rc == 0, f"{name} {argv} exited with {rc}")
+        _say(f"probes (a): python -m ...benchmarks.{name} {' '.join(argv)}: {text.strip()}")
+    launches = {p.__name__: p.launches for p in probes.PROBES}
+    _say(f"probes (a): launches of the entry points {launches}")
+    if dev.type == "cuda":  # the launch bar is the card's only
+        _require(all(launches.values()), f"an entry point did not launch its kernel: {launches}")
+
+    # (b) Each kernel against its plain version on the same tensors, at the
+    # originals' shapes (and the chain also at ``long_rows``).
+    rows, cols = probes.probe_rows(gb), probes.LANE_W
+    nbytes = 4 * rows * cols
+    x = torch.randn((rows, cols), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def diff(a, b):
+        return (a - b).abs().max().item()
+
+    write_err = diff(probes.probe_write(rows, cols, dev), probes.probe_write_reference(rows, cols, dev))
+    copy_err = diff(probes.probe_copy(x), probes.probe_copy_reference(x))
+    read = probes.probe_read(x)
+    read_err = diff(read, probes.probe_read_reference(x))
+
+    def library_read():
+        return x.view(rows // 8, 8, cols // 128, 128).sum((0, 2))
+
+    read_library_err = diff(read, library_read())
+    read_abs = x.abs().view(rows // 8, 8, cols // 128, 128).sum((0, 2))
+    terms = rows * cols // (8 * 128)
+    _say(
+        f"probes (b), {rows} x {cols} float32 ({nbytes / 2**30:.3f} GiB): write max abs diff "
+        f"{write_err:.3g}, copy {copy_err:.3g}, read {read_err:.3g} (against torch's sum in its "
+        f"own order {read_library_err:.3g}, {read_library_err / read_abs.max().item():.3g} of "
+        f"the largest Σ|x|; two orders may differ by 2·{terms - 1}·2^-24 of it)"
+    )
+    _require(write_err == 0 and copy_err == 0 and read_err == 0,
+             "write, copy or read differs from its plain version")
+    _require(bool(torch.isfinite(read).all()), "the read's sums are not finite")
+    taps = probes.probe_taps().to(dev)
+    tap_err, tap_inputs = 0.0, {}
+    for n in (probes.ROWS, long_rows):
+        xt = tap_probe.probe_input(n, probes.W).to(dev)
+        tap_inputs[n] = xt
+        for mode in probes.TAP_MODES:
+            got = probes.tap_chain(xt, taps, mode)
+            err = (got.double() - probes.tap_chain_reference(xt, taps, mode).double()).abs()
+            ok = bool((err <= tap_tolerance(torch, xt, taps, mode)).all())
+            _say(f"probes (b), tap chain {mode} {tuple(got.shape)}: max abs diff "
+                 f"{err.max().item():.3g}, within its tolerance {ok}")
+            _require(ok and bool(torch.isfinite(got).all()),
+                     f"the {mode} tap chain differs from its plain version")
+            tap_err = max(tap_err, err.max().item())
+
+    # (c) Times in turns (plain, kernel, kernel, plain) and the library's.
+    w_ms, w_plain, _ = _in_turns(torch, lambda: probes.probe_write(rows, cols, dev),
+                                 lambda: probes.probe_write_reference(rows, cols, dev), 10, 10)
+    w_lib = _event_ms(torch, lambda: torch.full((rows, cols), probes.WRITE_VALUE, device=dev), 10)
+    c_ms, c_plain, _ = _in_turns(torch, lambda: probes.probe_copy(x),
+                                 lambda: probes.probe_copy_reference(x), 10, 10)
+    c_lib = _event_ms(torch, lambda: x + 0.0, 10)
+    r_ms, r_plain, _ = _in_turns(torch, lambda: probes.probe_read(x),
+                                 lambda: probes.probe_read_reference(x), 10, 2)
+    r_lib = _event_ms(torch, library_read, 10)
+    xt, xl = tap_inputs[probes.ROWS], tap_inputs[long_rows]
+    t_ms, t_plain, _ = _in_turns(torch, lambda: probes.tap_chain(xt, taps, "f32"),
+                                 lambda: probes.tap_chain_reference(xt, taps, "f32"), 50, 2)
+    tl_ms, tl_plain, _ = _in_turns(torch, lambda: probes.tap_chain(xl, taps, "f32"),
+                                   lambda: probes.tap_chain_reference(xl, taps, "f32"), 20, 1)
+    gbs = {name: k * nbytes / ms / 1e6 for name, k, ms in
+           (("write", 1, w_ms), ("copy", 2, c_ms), ("read", 1, r_ms))}
+    _say(
+        f"probes (c), {nbytes / 1e9:.3f} GB: write kernel {w_ms:.4f} ms ({gbs['write']:.1f} GB/s), "
+        f"plain {w_plain:.4f}, torch.full {w_lib:.4f} ({nbytes / w_lib / 1e6:.1f} GB/s); copy "
+        f"kernel {c_ms:.4f} ms ({gbs['copy']:.1f} GB/s read + written), plain {c_plain:.4f}, "
+        f"x + 0.0 {c_lib:.4f} ({2 * nbytes / c_lib / 1e6:.1f} GB/s); read kernel {r_ms:.4f} ms "
+        f"({gbs['read']:.1f} GB/s), plain {r_plain:.4f}, torch sum {r_lib:.4f} "
+        f"({nbytes / r_lib / 1e6:.1f} GB/s); published peak {PEAK_BYTES_PER_S / 1e9:.0f} GB/s [{smi}]"
+    )
+    per_tap = probes.REPS * probes.NTAPS
+    # The float32 instructions an element of the chain executes: counted in
+    # the SASS (the compiler computes the 13 products once, csrc/probes.cu),
+    # or in a rehearsal on the CPU the source's 13 products and 831 sums.
+    ops_per_el = probes.NTAPS + per_tap - 1
+    if dev.type == "cuda":
+        mix = sass_mix(_build.load_kernels()._name)
+        _say(f"probes (c), cuobjdump -sass of the tap-chain kernels (opcodes a thread executes): {mix}")
+        f32 = mix.get("f32", {})
+        _require(f32.get("FFMA", 1) == 0, "the f32 tap chain holds a fused multiply-add")
+        _require(f32.get("FADD") == per_tap - 1 and probes.NTAPS <= f32["FMUL"] <= per_tap,
+                 f"the f32 tap chain does not run its {per_tap - 1} sums and 13 to {per_tap} products")
+        ops_per_el = f32["FMUL"] + f32["FADD"]
+    tap_rate = long_rows * probes.W * ops_per_el / (tl_ms * 1e-3)
+    mode_line = []
+    for mode in probes.TAP_MODES:
+        ms_short = _event_ms(torch, lambda: probes.tap_chain(xt, taps, mode), 50)
+        ms_long = _event_ms(torch, lambda: probes.tap_chain(xl, taps, mode), 20)
+        mode_line.append(
+            f"{mode} {ms_short:.4f} ms at {probes.ROWS} rows, {ms_long:.4f} ms at {long_rows} "
+            f"({ms_long * 1e9 / (long_rows * probes.W * per_tap):.4f} ps/element·tap)"
+        )
+    _say(
+        f"probes (c), tap chain {probes.ROWS} x {probes.W}: f32 kernel {t_ms:.4f} ms, plain "
+        f"{t_plain:.3f}; {long_rows} x {probes.W}: kernel {tl_ms:.4f} ms, plain {tl_plain:.3f}: "
+        f"{tl_ms * 1e9 / (long_rows * probes.W * per_tap):.4f} ps/element·tap, {ops_per_el} "
+        f"float32 instructions an element, {tap_rate / 1e12:.2f} T of them a second (the "
+        f"published {PEAK_FLOP_PER_S / 1e12:.0f} TFLOP/s counts a fused multiply-add as two: "
+        f"{PEAK_FLOP_PER_S / 2e12:.1f} T instructions/s); by mode: "
+        + "; ".join(mode_line) + f" [{smi}]"
+    )
+
+    # (d) K1 and K3 against the ceilings just measured: each launch's bytes
+    # over the copy rate, or its operations over the chain's rate.
+    copy_bps = gbs["copy"] * 1e9
+
+    def reach(work):
+        by_bytes = sum(b / copy_bps for b, _ in work)
+        by_ops = sum(o / tap_rate for _, o in work)
+        ms = 1e3 * sum(max(b / copy_bps, o / tap_rate) for b, o in work)
+        return ms, "bytes" if by_bytes >= by_ops else "operations"
+
+    if octave_work is None:
+        _say(f"probes (d): no K1/K3 launches given, no reach; phase 21 took "
+             f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+        reaches = None
+    else:
+        reaches = {"fused_octave": reach(octave_work), "blur_fused": reach(blur_work)}
+        _say(
+            f"probes (d), reach at the measured ceilings ({gbs['copy']:.1f} GB/s copy, "
+            f"{tap_rate / 1e12:.2f} T float32 operations/s): fused_octave "
+            f"{reaches['fused_octave'][0]:.4f} ms by {reaches['fused_octave'][1]}, blur_fused "
+            f"{reaches['blur_fused'][0]:.4f} ms by {reaches['blur_fused'][1]}; phase 21 took "
+            f"{time.perf_counter() - t_phase:.1f} s [{smi}]"
+        )
+    tap_bytes = 4 * (probes.ROWS + probes.NTAPS) * probes.W + 4 * probes.ROWS * probes.W
+    work = {
+        "probe_write": ("bw_probe.py:97", write_err, w_ms, w_plain, _bound(nbytes, 0), w_lib),
+        "probe_copy": ("bw_probe.py:106", copy_err, c_ms, c_plain, _bound(2 * nbytes, 0), c_lib),
+        "probe_read": ("bw_probe.py:116", read_err, r_ms, r_plain,
+                       _bound(nbytes + 4 * 8 * 128, rows * cols), r_lib),
+        "tap_chain": ("tap_probe.py:121", tap_err, t_ms, t_plain,
+                      _bound(tap_bytes, probes.ROWS * probes.W * (probes.NTAPS + per_tap - 1)),
+                      None),
+    }
+    records = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + "probes.cu",
+            "replaces": "benchmarks/" + where,
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": library,
+        }
+        for name, (where, err, ms, plain, bound, library) in work.items()
+    ]
+    return records, reaches
+
+
 def main() -> int:
     import dataclasses
 
@@ -3347,6 +3626,7 @@ def main() -> int:
         _, seed, _ = fused_octave(base, _octave_sigmas(cfg, octave), spo, thr, upsample2x=octave == 0)
         base = downsample2x_nn(seed).contiguous()
     kernel_ms, plain_ms, scales_ms, octave_bounds = [], [], [], []
+    octave_work = []  # (bytes, operations) of each octave, for phase 21's reach
     for octave, base in enumerate(bases):
         args = (base, _octave_sigmas(cfg, octave), spo, thr)
         up2 = octave == 0
@@ -3354,10 +3634,10 @@ def main() -> int:
         pixels = base.numel() * (4 if up2 else 1)
         n_scales = cfg.scales_per_octave_total
         radii = [0 if sg is None else kernel_radius(sg) for sg in args[1]]
-        octave_bounds.append(_bound(
-            4 * base.numel() + pixels * (4 * (n_scales - 1) + 4 + 2),
-            sum(_blur_flop(pixels, r) for r in radii) + pixels * (n_scales - 1),
-        ))
+        octave_bytes = 4 * base.numel() + pixels * (4 * (n_scales - 1) + 4 + 2)
+        octave_flop = sum(_blur_flop(pixels, r) for r in radii) + pixels * (n_scales - 1)
+        octave_bounds.append(_bound(octave_bytes, octave_flop))
+        octave_work.append((octave_bytes, octave_flop + _scan_ops(pixels, n_scales - 1)))
 
         def kernel(args=args, up2=up2):
             return fused_octave(*args, upsample2x=up2)
@@ -3626,7 +3906,7 @@ def main() -> int:
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     blur_ms = blur_plain_ms = blur_library_ms = 0.0
-    blur_bytes = blur_flop = 0
+    blur_work = []  # (bytes, operations) of each blur: its bound, phase 21's reach
     for octave, base in enumerate(octave_bases):
         for scale, sigma in enumerate(_octave_sigmas(cfg, octave)):
             if sigma is None:
@@ -3638,23 +3918,18 @@ def main() -> int:
             lib_err = (library_blur(base, sigma) - blur_fused(base, sigma)).abs().max().item()
             _require(lib_err <= 1e-5, f"the library yardstick computes another blur ({lib_err})")
             l_ms = _event_ms(torch, lambda: library_blur(base, sigma), 5)
-            bound = _bound(8 * base.numel(), _blur_flop(base.numel(), radius))
+            blur_work.append((8 * base.numel(), _blur_flop(base.numel(), radius)))
+            bound = _bound(*blur_work[-1])
             blur_ms += k_ms
             blur_plain_ms += p_ms
             blur_library_ms += l_ms
-            blur_bytes += 8 * base.numel()
-            blur_flop += _blur_flop(base.numel(), radius)
             _say(
                 f"timing blur octave {octave} scale {scale} {tuple(base.shape)} sigma "
                 f"{sigma:.4f} radius {radius}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, two "
                 f"conv2d {l_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} [{smi}]"
             )
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    blur_bound = sum(
-        _bound(8 * base.numel(), _blur_flop(base.numel(), kernel_radius(sigma)))[0]
-        for octave, base in enumerate(octave_bases)
-        for sigma in _octave_sigmas(cfg, octave) if sigma is not None
-    )
+    blur_bound = sum(_bound(*w)[0] for w in blur_work)
     _say(
         f"timing blur, all {n_blurs} blurs of the scale-space path at {BATCH} "
         f"frames: kernel {blur_ms:.3f} ms (two-pass kernel: {PREV_MS['blur_fused']} ms), "
@@ -3817,6 +4092,7 @@ def main() -> int:
         multi_launches = (0, 0, 0)
         _say("phase 20 (the sharded paths across cards, one NCCL rank a card) needs several "
              "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
+    probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -3836,6 +4112,8 @@ def main() -> int:
                 "bound_ms": octave_bound_ms,
                 "bound_by": max(octave_bounds)[1],
                 "library_ms": None,
+                "reach_ms": reach["fused_octave"][0],
+                "reach_by": reach["fused_octave"][1],
             },
             {
                 "name": "window_sample_pair",
@@ -3864,9 +4142,12 @@ def main() -> int:
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,
                 "bound_ms": blur_bound,
-                "bound_by": _bound(blur_bytes, blur_flop)[1],
+                "bound_by": _bound(*map(sum, zip(*blur_work)))[1],
                 "library_ms": blur_library_ms,
+                "reach_ms": reach["blur_fused"][0],
+                "reach_by": reach["blur_fused"][1],
             },
+            *probe_records,
         ]
     }
     print(json.dumps(record))

@@ -59,6 +59,14 @@ _SIGNATURES = {  # name: (argtypes, restype)
          _I, _P],
         _I,
     ),
+    # out, n, value, stream
+    "sift_probe_write": ([_P, ctypes.c_longlong, ctypes.c_float, _P], _I),
+    # src, dst, n, stream
+    "sift_probe_copy": ([_P, _P, ctypes.c_longlong, _P], _I),
+    # x, rows, cols, partial, out, stream
+    "sift_probe_read": ([_P, _I, _I, _P, _P, _P], _I),
+    # x, rows, width, taps, mode, out, stream
+    "sift_probe_taps": ([_P, _I, _I, _P, _I, _P, _P], _I),
     "sift_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

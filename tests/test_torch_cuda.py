@@ -873,3 +873,66 @@ def test_the_references_orbax_ba_state_restores_onto_the_card(device):
         leaf = getattr(got, name)
         assert leaf.device == device and leaf.dtype == torch.float32, name
         assert torch.equal(leaf, getattr(want, name)), name
+
+
+# --- the card's probes (K4-K7, csrc/probes.cu) ----------------------------
+
+
+@pytest.mark.parametrize("rows, cols", [(128, 128), (384, 4096), (256, 640)])
+def test_memory_probes_match_their_plain_versions_bit_for_bit(device, rows, cols):
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
+
+    x = torch.from_numpy(
+        np.random.default_rng(rows + cols).standard_normal((rows, cols)).astype(np.float32)
+    ).to(device)
+    before = [p.launches for p in probes.PROBES[:3]]
+    wrote = probes.probe_write(rows, cols, device)
+    copied = probes.probe_copy(x)
+    read = probes.probe_read(x)
+    torch.cuda.synchronize()
+    assert [p.launches for p in probes.PROBES[:3]] == [n + 1 for n in before]
+    assert wrote.device == device and read.shape == (8, 128)
+    assert torch.equal(wrote, probes.probe_write_reference(rows, cols, device))
+    assert torch.equal(copied, x)
+    assert torch.equal(read, probes.probe_read_reference(x))
+
+
+@pytest.mark.parametrize("rows, width", [(16, 128), (5, 6), (256, 1024), (3, 1000)])
+@pytest.mark.parametrize("mode", ["f32", "bf16_carry", "bf16_full", "bf16_pair"])
+def test_tap_chain_kernel_matches_its_plain_version(device, mode, rows, width):
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks.tap_probe import probe_input
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
+
+    x = probe_input(rows, width, seed=rows).to(device)
+    taps = probes.probe_taps().to(device)
+    before = probes.tap_chain.launches
+    got = probes.tap_chain(x, taps, mode)
+    torch.cuda.synchronize()
+    assert probes.tap_chain.launches == before + 1
+    want = probes.tap_chain_reference(x, taps, mode)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= chip_smoke.tap_tolerance(torch, x, taps, mode)).all()), err.max().item()
+    if mode == "f32":
+        assert torch.equal(got, want)
+
+
+def test_probes_refuse_a_mixed_device_or_odd_shape_on_the_card(device):
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
+
+    x = torch.ones((14, 4), device=device)
+    with pytest.raises(ValueError):
+        probes.tap_chain(x, probes.probe_taps(), "f32")  # taps on the CPU
+    with pytest.raises(ValueError):
+        probes.probe_read(torch.ones((100, 128), device=device))
+
+
+def test_probe_entry_points_run_on_the_card(device, capsys):
+    import json
+
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import bw_probe, tap_probe
+
+    assert bw_probe.main(["--gb", "0.01", "--iters", "2"]) == 0
+    assert tap_probe.main(["--rows", "32", "--width", "256", "--iters", "2"]) == 0
+    bw, tap = (json.loads(line) for line in capsys.readouterr().out.strip().splitlines())
+    assert bw["platform"] == "gpu" and bw["pl_copy_gb_s"] > 0 and bw["smi"]
+    assert tap["platform"] == "gpu" and tap["f32"]["ms"] > 0 and "max_rel_err" in tap["bf16_pair"]
