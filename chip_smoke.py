@@ -219,10 +219,17 @@ Phases (any failure exits non-zero and prints no result):
     Each kernel against its plain version on the same CUDA tensors at the
     originals' shapes: write, copy, read and the f32 chain max abs diff 0;
     the bf16 chains within ``tap_tolerance`` (one bf16 rounding per
-    product). (c) Kernel, plain version and library call in turns; GB/s,
-    ps/element·tap; the floating-point opcodes of the chain in ``cuobjdump
-    -sass`` (f32: 831 FADD, no FFMA; the compiler computes the 13 products
-    once) and the float32 instructions/s they give. (d)
+    product); the write and the copy also at their edges (4 elements, a
+    stretch of 256 float4s and 16 bytes, a count of stretches that does not
+    divide among the resident blocks, a view 16 bytes into its buffer),
+    each of their outputs where a buffer of NaN was just freed. (c) Plain
+    version, kernel and library call in one sequence of turns, each turn
+    enqueued while the stream is held (for the write and the copy with the
+    first design and a bulk-copy ring of ``tools/probe_designs.cu`` in the
+    same turns); GB/s, ps/element·tap;
+    the floating-point opcodes of the chain in ``cuobjdump -sass`` (f32:
+    831 FADD, no FFMA; the compiler computes the 13 products once) and the
+    float32 instructions/s they give. (d)
     K1's and K3's reach: each launch timed in phases 5 and 10, the larger
     of its bytes over the measured copy rate and its operations (taps,
     DoG differences, K1's scan) over the measured f32 chain's rate.
@@ -394,6 +401,85 @@ def _in_turns(torch, kernel, plain, kernel_reps: int, plain_reps: int):
         _event_ms(torch, plain, plain_reps),
     ]
     return (rounds[1] + rounds[2]) / 2, (rounds[0] + rounds[3]) / 2, rounds
+
+
+# Clock cycles a sleeping kernel holds the stream while the host enqueues a
+# turn: about 50 ms at the H100's 1.98 GHz, then four times that where the
+# host took longer.
+HOLD_CYCLES = (100_000_000, 400_000_000)
+
+
+def _held_ms(torch, fn, reps: int) -> tuple[float, float, bool]:
+    """``(device_ms, host_us, held)``: the mean device time of ``fn()`` over
+    ``reps`` calls enqueued while a sleeping kernel holds the stream, so
+    that no call waits for the host to launch it; the host's mean µs to
+    enqueue one call; and whether the stream was still held when the last
+    call was enqueued (not where the host stalled for longer than every
+    hold, or a turn launches more kernels than the card queues)."""
+    for cycles in HOLD_CYCLES:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0
+        held = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if held:
+            break
+    return start.elapsed_time(end) / reps, 1e6 * host_s / reps, held
+
+
+def _turns_of(torch, fns: dict, reps: dict) -> dict:
+    """Mean ms of each of ``fns`` (``name: fn``), each warmed up, then timed
+    in one sequence of turns, the names in order and back (``a, b, c, c, b,
+    a``), ``reps[name]`` calls a turn: so every pair is compared like with
+    like. On the card each turn is enqueued while the stream is held
+    (``_held_ms``), so the reading is the card's time alone and not the
+    host's latency to launch a call (which differs from one wrapper to
+    another: ctypes, a device guard, an allocation)."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    rounds = {name: [] for name in names}
+    for name in names + names[::-1]:
+        if torch.cuda.is_available():
+            rounds[name].append(_held_ms(torch, fns[name], reps[name])[0])
+        else:
+            rounds[name].append(_event_ms(torch, fns[name], reps[name]))
+    return {name: sum(r) / len(r) for name, r in rounds.items()}
+
+
+def _on_poison(torch, n: int, dev, fn):
+    """``fn()``, whose new ``n``-element float32 output must start where a
+    buffer of NaN was just freed (on the card; on the CPU ``fn()`` alone):
+    so an element its kernel did not write stays NaN and cannot pass for a
+    written one, as the stale bytes of an earlier output could."""
+    if dev.type != "cuda":
+        return fn()
+    poison = torch.full((n,), float("nan"), device=dev)
+    at = poison.data_ptr()
+    del poison
+    out = fn()
+    _require(out.data_ptr() == at, "a checked output did not take the poisoned block")
+    return out
+
+
+def _probe_designs():
+    """``tools/torch_probe_designs.py``: the write's and the copy's other
+    designs (``tools/probe_designs.cu``), built at first use."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_probe_designs.py")
+    spec = importlib.util.spec_from_file_location("torch_probe_designs", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _bound(n_bytes: float, flop: float) -> tuple[float, str]:
@@ -3314,8 +3400,28 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB
     def diff(a, b):
         return (a - b).abs().max().item()
 
-    write_err = diff(probes.probe_write(rows, cols, dev), probes.probe_write_reference(rows, cols, dev))
-    copy_err = diff(probes.probe_copy(x), probes.probe_copy_reference(x))
+    write_err = diff(_on_poison(torch, x.numel(), dev, lambda: probes.probe_write(rows, cols, dev)),
+                     probes.probe_write_reference(rows, cols, dev))
+    copy_err = diff(_on_poison(torch, x.numel(), dev, lambda: probes.probe_copy(x)),
+                    probes.probe_copy_reference(x))
+    # The write's and the copy's edges (a block a stretch of 256 float4s):
+    # 4 elements, a stretch and 16 bytes, a count of stretches that does not
+    # divide among the multiprocessors' resident blocks, a view 16 bytes in.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    stretch = 256 * 4
+    ragged = (sms * 8 * 3 + 5) * stretch + 4
+    base = torch.randn(ragged + 4, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    edges = {"4": base[:4], "stretch+16B": base[: stretch + 4], "ragged": base[:ragged],
+             "view+16B": base[4 : 4 + 4096]}
+    for label, xe in edges.items():
+        n = xe.numel()
+        edge = (diff(_on_poison(torch, n, dev, lambda: probes.probe_write(1, n, dev)),
+                     probes.probe_write_reference(1, n, dev)),
+                diff(_on_poison(torch, n, dev, lambda: probes.probe_copy(xe)),
+                     probes.probe_copy_reference(xe)))
+        _require(edge == (0, 0), f"write or copy differs from its plain version at {label} ({n} elements)")
+    _say(f"probes (b): write and copy equal fill_ and clone at the edges "
+         f"{ {label: xe.numel() for label, xe in edges.items()} } elements")
     read = probes.probe_read(x)
     read_err = diff(read, probes.probe_read_reference(x))
 
@@ -3349,16 +3455,26 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB
                      f"the {mode} tap chain differs from its plain version")
             tap_err = max(tap_err, err.max().item())
 
-    # (c) Times in turns (plain, kernel, kernel, plain) and the library's.
-    w_ms, w_plain, _ = _in_turns(torch, lambda: probes.probe_write(rows, cols, dev),
-                                 lambda: probes.probe_write_reference(rows, cols, dev), 10, 10)
-    w_lib = _event_ms(torch, lambda: torch.full((rows, cols), probes.WRITE_VALUE, device=dev), 10)
-    c_ms, c_plain, _ = _in_turns(torch, lambda: probes.probe_copy(x),
-                                 lambda: probes.probe_copy_reference(x), 10, 10)
-    c_lib = _event_ms(torch, lambda: x + 0.0, 10)
-    r_ms, r_plain, _ = _in_turns(torch, lambda: probes.probe_read(x),
-                                 lambda: probes.probe_read_reference(x), 10, 2)
-    r_lib = _event_ms(torch, library_read, 10)
+    # (c) Times in one sequence of turns: the plain version, the kernel and
+    # the library's call; for the write and the copy on the card also the
+    # first design and a bulk-copy ring (tools/probe_designs.cu).
+    write_fns = {"plain": lambda: probes.probe_write_reference(rows, cols, dev),
+                 "kernel": lambda: probes.probe_write(rows, cols, dev),
+                 "library": lambda: torch.full((rows, cols), probes.WRITE_VALUE, device=dev)}
+    copy_fns = {"plain": lambda: probes.probe_copy_reference(x), "kernel": lambda: probes.probe_copy(x),
+                "library": lambda: x + 0.0}
+    if dev.type == "cuda":
+        other = _probe_designs().yardsticks(x)
+        write_fns |= other["write"]
+        copy_fns |= other["copy"]
+    w = _turns_of(torch, write_fns, dict.fromkeys(write_fns, 20))
+    c = _turns_of(torch, copy_fns, dict.fromkeys(copy_fns, 20))
+    r = _turns_of(torch, {"plain": lambda: probes.probe_read_reference(x),
+                          "kernel": lambda: probes.probe_read(x), "library": library_read},
+                  {"plain": 2, "kernel": 20, "library": 20})
+    w_ms, w_plain, w_lib = w["kernel"], w["plain"], w["library"]
+    c_ms, c_plain, c_lib = c["kernel"], c["plain"], c["library"]
+    r_ms, r_plain, r_lib = r["kernel"], r["plain"], r["library"]
     xt, xl = tap_inputs[probes.ROWS], tap_inputs[long_rows]
     t_ms, t_plain, _ = _in_turns(torch, lambda: probes.tap_chain(xt, taps, "f32"),
                                  lambda: probes.tap_chain_reference(xt, taps, "f32"), 50, 2)
@@ -3366,13 +3482,21 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB
                                    lambda: probes.tap_chain_reference(xl, taps, "f32"), 20, 1)
     gbs = {name: k * nbytes / ms / 1e6 for name, k, ms in
            (("write", 1, w_ms), ("copy", 2, c_ms), ("read", 1, r_ms))}
+
+    def rates(times, k, names):
+        return ", ".join(f"{label} {times[key]:.4f} ms ({k * nbytes / times[key] / 1e6:.1f} GB/s)"
+                         for key, label in names.items() if key in times)
+
     _say(
-        f"probes (c), {nbytes / 1e9:.3f} GB: write kernel {w_ms:.4f} ms ({gbs['write']:.1f} GB/s), "
-        f"plain {w_plain:.4f}, torch.full {w_lib:.4f} ({nbytes / w_lib / 1e6:.1f} GB/s); copy "
-        f"kernel {c_ms:.4f} ms ({gbs['copy']:.1f} GB/s read + written), plain {c_plain:.4f}, "
-        f"x + 0.0 {c_lib:.4f} ({2 * nbytes / c_lib / 1e6:.1f} GB/s); read kernel {r_ms:.4f} ms "
-        f"({gbs['read']:.1f} GB/s), plain {r_plain:.4f}, torch sum {r_lib:.4f} "
-        f"({nbytes / r_lib / 1e6:.1f} GB/s); published peak {PEAK_BYTES_PER_S / 1e9:.0f} GB/s [{smi}]"
+        f"probes (c), {nbytes / 1e9:.3f} GB, one sequence of turns each: write kernel "
+        + rates(w, 1, {"kernel": "", "plain": "fill_", "library": "torch.full", "first": "first design",
+                       "bulk": "bulk design"}).lstrip()
+        + "; copy kernel "
+        + rates(c, 2, {"kernel": "", "plain": "clone", "library": "x + 0.0", "first": "first design",
+                       "bulk": "bulk design"}).lstrip()
+        + " (read + written); read kernel "
+        + rates(r, 1, {"kernel": "", "plain": "plain", "library": "torch sum"}).lstrip()
+        + f"; published peak {PEAK_BYTES_PER_S / 1e9:.0f} GB/s [{smi}]"
     )
     per_tap = probes.REPS * probes.NTAPS
     # The float32 instructions an element of the chain executes: counted in

@@ -87,17 +87,15 @@ def _find_nvcc() -> str:
     )
 
 
-@functools.cache
-def load_kernels() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
+def build_library(sources, stem: str, headers) -> Path:
+    """Build ``sources`` into ``build/lib<stem>_<hash>.so`` once per version
+    of the sources and the ``headers`` they include; its path."""
     nvcc = _find_nvcc()
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    headers = sorted(CSRC_DIR.glob("*.cuh"))
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in sources + headers)
+        b"".join(Path(p).read_bytes() for p in [*sources, *headers])
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsift_kernels_{digest}.so"
+    lib_path = BUILD_DIR / f"lib{stem}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f"{lib_path.stem}.tmp{os.getpid()}.so"
@@ -112,6 +110,15 @@ def load_kernels() -> ctypes.CDLL:
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, lib_path)  # atomic: concurrent builds race benignly
+    return lib_path
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    lib_path = build_library(
+        sorted(CSRC_DIR.glob("*.cu")), "sift_kernels", sorted(CSRC_DIR.glob("*.cuh"))
+    )
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,8 +16,18 @@
 // else; the chain is operations (844 a element, 2 MB in and out). The
 // TPU kernels cut the arrays into 128-row blocks that a sequential grid
 // walked; here blocks run in parallel in no order, so:
-// - write and copy are a grid-stride loop of 16-byte (float4) accesses,
-//   neighbouring threads on neighbouring addresses;
+// - write and copy give each block one stretch of 256 float4s, one
+//   16-byte access a thread with the streaming cache hints (__ldcs/__stcs),
+//   neighbouring threads on neighbouring addresses, as many blocks as
+//   stretches (262,144 for the 1 GiB buffer). The blocks are handed out in
+//   order, so the accesses in flight form one compact window of the buffer
+//   and the last wave is one block deep. On an H100 80GB HBM3 at 700 W the
+//   first design, a grid-stride loop over 32 blocks a multiprocessor
+//   (ptxas kept four loads in flight a thread), copied about 4 % slower
+//   than clone, and Hopper's bulk copies (cp.async.bulk through a ring of
+//   shared memory) about 3 % slower. tools/probe_designs.cu holds both;
+//   chip_smoke.py's phase 21 and tools/torch_probe_designs.py time them
+//   beside these kernels (PERF.md §6);
 // - the read cannot carry its (8, 128) sum from block to block as the TPU's
 //   grid did, and float atomics would sum in an order that changes from run
 //   to run: each block of 128 rows writes its own (8, 128) partial sum, and
@@ -50,30 +60,27 @@ constexpr int kBf16Carry = 1;
 constexpr int kBf16Full = 2;
 constexpr int kBf16Pair = 3;
 
-int stream_blocks(long long n4) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long want = (n4 + kThreads - 1) / kThreads;
-  const long long most = 32LL * sms;  // a grid-stride loop past that
-  return (int)(want < most ? (want > 0 ? want : 1) : most);
+// The blocks of a stretch stream over ``n4`` float4s, or 0 past the
+// grid's limit.
+int stretches(long long n4) {
+  const long long blocks = (n4 + kThreads - 1) / kThreads;
+  return blocks <= 0x7fffffffLL ? (int)blocks : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
 write_kernel(float4* __restrict__ out, long long n4, float value) {
-  const float4 v = make_float4(value, value, value, value);
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * kThreads) {
-    out[i] = v;
+  const long long first = blockIdx.x * (long long)kThreads;
+  if (threadIdx.x < n4 - first) {
+    __stcs(out + first + threadIdx.x, make_float4(value, value, value, value));
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(const float4* __restrict__ src, float4* __restrict__ dst,
             long long n4) {
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * kThreads) {
-    dst[i] = src[i];
+  const long long first = blockIdx.x * (long long)kThreads;
+  if (threadIdx.x < n4 - first) {
+    __stcs(dst + first + threadIdx.x, __ldcs(src + first + threadIdx.x));
   }
 }
 
@@ -210,10 +217,10 @@ tap_bf16_kernel(const float* __restrict__ x, int width,
 // multiple of 4), on ``stream``. Returns a cudaError_t, 0 for success.
 extern "C" int sift_probe_write(float* out, long long n, float value,
                                 void* stream) {
-  if (n % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int blocks = stretches(n / 4);
+  if (n <= 0 || n % 4 != 0 || blocks == 0) return (int)cudaErrorInvalidValue;
   const long long n4 = n / 4;
-  write_kernel<<<stream_blocks(n4), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+  write_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<float4*>(out), n4, value);
   return (int)cudaGetLastError();
 }
@@ -222,10 +229,10 @@ extern "C" int sift_probe_write(float* out, long long n, float value,
 // multiple of 4), on ``stream``.
 extern "C" int sift_probe_copy(const float* src, float* dst, long long n,
                                void* stream) {
-  if (n % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int blocks = stretches(n / 4);
+  if (n <= 0 || n % 4 != 0 || blocks == 0) return (int)cudaErrorInvalidValue;
   const long long n4 = n / 4;
-  copy_kernel<<<stream_blocks(n4), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  copy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(src), reinterpret_cast<float4*>(dst),
       n4);
   return (int)cudaGetLastError();

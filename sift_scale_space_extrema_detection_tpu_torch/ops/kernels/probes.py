@@ -80,6 +80,17 @@ def _check_float32(what: str, name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def _check_aligned(what: str, name: str, t: torch.Tensor, nbytes: int) -> None:
+    """The kernels access ``t`` ``nbytes`` at a time: a view that starts
+    between two such accesses (``x[1:]``) would fault on the card, and the
+    fault ends the process. Refused on every device alike."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(
+            f"{what}: {name} must start at an address that is a multiple of {nbytes} bytes, "
+            f"got one {t.data_ptr() % nbytes} bytes past it (a view at an element offset?)"
+        )
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -132,6 +143,7 @@ def probe_copy(x: torch.Tensor) -> torch.Tensor:
     _check_float32("probe_copy", "x", x)
     if x.numel() % 4 or x.numel() == 0:
         raise ValueError(f"probe_copy: x must hold a positive multiple of 4 elements, got {x.numel()}")
+    _check_aligned("probe_copy", "x", x, 16)
     if _device_kind("probe_copy", x) == "cpu":
         return probe_copy_reference(x)
     out = torch.empty_like(x)
@@ -156,6 +168,7 @@ def _check_read(x: torch.Tensor) -> None:
             f"probe_read: x must be (rows, cols) with rows a multiple of {BLOCK_ROWS} and cols "
             f"of {READ_TILE[1]}, got {tuple(x.shape)}"
         )
+    _check_aligned("probe_read", "x", x, 16)
 
 
 def probe_read_reference(x: torch.Tensor) -> torch.Tensor:
@@ -217,6 +230,8 @@ def _check_taps(x: torch.Tensor, taps: torch.Tensor, mode: str) -> int:
         )
     if mode != "f32" and x.shape[1] % 2:
         raise ValueError(f"tap_chain: the bf16 modes pair columns and need an even W, got {x.shape[1]}")
+    if mode != "f32":
+        _check_aligned("tap_chain", "x", x, 8)
     return x.shape[0] - NTAPS
 
 

@@ -878,23 +878,55 @@ def test_the_references_orbax_ba_state_restores_onto_the_card(device):
 # --- the card's probes (K4-K7, csrc/probes.cu) ----------------------------
 
 
-@pytest.mark.parametrize("rows, cols", [(128, 128), (384, 4096), (256, 640)])
-def test_memory_probes_match_their_plain_versions_bit_for_bit(device, rows, cols):
+# The write's and the copy's edges: a block of 256 float4s a stretch, so 4
+# elements, one stretch and 16 bytes, a count of stretches that does not
+# divide among 132 multiprocessors × 8 resident blocks, and a view 16 bytes
+# into its buffer (taken, and read too).
+STRETCH = 256 * 4
+
+
+@pytest.mark.parametrize(
+    "rows, cols, offset",
+    [(128, 128, 0), (384, 4096, 0), (256, 640, 0), (1, 4, 0), (1, STRETCH + 4, 0),
+     (1, (132 * 8 * 3 + 5) * STRETCH + 4, 0), (128, 128, 4)],
+)
+def test_memory_probes_match_their_plain_versions_bit_for_bit(device, rows, cols, offset):
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
 
-    x = torch.from_numpy(
-        np.random.default_rng(rows + cols).standard_normal((rows, cols)).astype(np.float32)
+    base = torch.from_numpy(
+        np.random.default_rng(rows + cols).standard_normal(offset + rows * cols).astype(np.float32)
     ).to(device)
+    x = base[offset:].view(rows, cols)
+    readable = rows % 128 == 0 and cols % 128 == 0
     before = [p.launches for p in probes.PROBES[:3]]
-    wrote = probes.probe_write(rows, cols, device)
-    copied = probes.probe_copy(x)
-    read = probes.probe_read(x)
+    # Each output where a buffer of NaN was just freed, so an element the
+    # kernel missed cannot hold a value left there by an earlier output.
+    wrote = chip_smoke._on_poison(torch, rows * cols, device, lambda: probes.probe_write(rows, cols, device))
+    copied = chip_smoke._on_poison(torch, rows * cols, device, lambda: probes.probe_copy(x))
+    read = probes.probe_read(x) if readable else None
     torch.cuda.synchronize()
-    assert [p.launches for p in probes.PROBES[:3]] == [n + 1 for n in before]
-    assert wrote.device == device and read.shape == (8, 128)
+    assert [p.launches for p in probes.PROBES[:3]] == [n + 1 for n in before[:2]] + [before[2] + readable]
+    assert wrote.device == device
     assert torch.equal(wrote, probes.probe_write_reference(rows, cols, device))
     assert torch.equal(copied, x)
-    assert torch.equal(read, probes.probe_read_reference(x))
+    if readable:
+        assert read.shape == (8, 128)
+        assert torch.equal(read, probes.probe_read_reference(x))
+
+
+def test_probes_refuse_a_view_off_their_access_boundary_on_the_card(device):
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
+
+    base = torch.ones(1 + 128 * 128, device=device)
+    before = [p.launches for p in probes.PROBES]
+    with pytest.raises(ValueError):
+        probes.probe_copy(base[1:9])
+    with pytest.raises(ValueError):
+        probes.probe_read(base[1:].view(128, 128))
+    with pytest.raises(ValueError):
+        probes.tap_chain(base[1 : 1 + 14 * 4].view(14, 4), probes.probe_taps().to(device), "bf16_full")
+    torch.cuda.synchronize()
+    assert [p.launches for p in probes.PROBES] == before
 
 
 @pytest.mark.parametrize("rows, width", [(16, 128), (5, 6), (256, 1024), (3, 1000)])

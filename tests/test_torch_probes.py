@@ -290,11 +290,27 @@ def test_wrappers_run_the_plain_versions_on_the_cpu_without_a_launch():
         (lambda: probes.tap_chain(torch.ones((14, 4)), torch.ones(12), "f32"), ValueError),
         (lambda: probes.tap_chain(torch.ones((14, 4), device="meta"),
                                   probes.probe_taps().to("meta"), "f32"), ValueError),
+        # contiguous views of 8, of 128 x 128 and of 14 x 4 elements one element into their
+        # buffers: every other check passes, the kernels' 16-byte (8-byte) accesses would fault
+        (lambda: probes.probe_copy(torch.arange(12.0)[1:9]), ValueError),
+        (lambda: probes.probe_read(torch.ones(128 * 128 + 1)[1:].view(128, 128)), ValueError),
+        (lambda: probes.tap_chain(torch.ones(14 * 4 + 1)[1:].view(14, 4), probes.probe_taps(),
+                                  "bf16_pair"), ValueError),
     ],
 )
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, error):
     with pytest.raises(error):
         call()
+
+
+def test_wrappers_take_views_on_the_kernels_access_boundaries():
+    base = torch.arange(4 + 128 * 128, dtype=torch.float32)
+    x = base[4:].view(128, 128)  # 16 bytes into its buffer
+    assert torch.equal(probes.probe_copy(x), x)
+    assert torch.equal(probes.probe_read(x), probes.probe_read_reference(x.clone()))
+    xt = torch.ones(2 + 14 * 4)[2:].view(14, 4)  # 8 bytes in: the bf16 modes' float2 reads
+    assert torch.equal(probes.tap_chain(xt, probes.probe_taps(), "bf16_pair"),
+                       probes.tap_chain(xt.clone(), probes.probe_taps(), "bf16_pair"))
 
 
 # --- the entry points --------------------------------------------------------
@@ -373,3 +389,70 @@ def test_sass_counts_read_the_tap_kernels_opcodes():
     assert set(mix) == {"f32", "bf16_full"}
     assert mix["f32"] == {"FMUL": 1, "FADD": 2, "FFMA": 0, "HMUL2": 0, "HADD2": 0, "HFMA2": 0}
     assert mix["bf16_full"] == {"FMUL": 0, "FADD": 0, "FFMA": 0, "HMUL2": 1, "HADD2": 1, "HFMA2": 1}
+
+
+def test_turns_run_each_function_in_order_and_back():
+    import chip_smoke
+
+    calls = []
+    fns = {name: functools.partial(calls.append, name) for name in ("plain", "kernel", "library")}
+    times = chip_smoke._turns_of(torch, fns, {"plain": 2, "kernel": 1, "library": 1})
+    assert set(times) == set(fns) and all(t >= 0 for t in times.values())
+    warm = ["plain", "kernel", "library"]
+    assert calls == warm + ["plain", "plain", "kernel", "library", "library", "kernel", "plain", "plain"]
+
+
+def test_held_turns_take_a_longer_hold_where_the_host_was_late_and_say_so():
+    import chip_smoke
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def query(self):  # whether the hold had ended when the turn was enqueued
+            return ended.pop(0)
+
+        def elapsed_time(self, end):
+            return 40.0
+
+    sleeps, calls = [], []
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        Event=Event, _sleep=sleeps.append, synchronize=lambda: None))
+    ended = [True, False]
+    ms, host_us, held = chip_smoke._held_ms(fake, functools.partial(calls.append, 1), 4)
+    assert (ms, held, len(calls)) == (10.0, True, 8) and host_us >= 0
+    assert sleeps == list(chip_smoke.HOLD_CYCLES[:2]) and sleeps[1] > sleeps[0]
+    sleeps.clear()
+    ended = [True] * len(chip_smoke.HOLD_CYCLES)
+    assert chip_smoke._held_ms(fake, lambda: None, 4)[2] is False
+    assert sleeps == list(chip_smoke.HOLD_CYCLES) and not ended
+
+
+def test_a_poisoned_check_runs_its_function_alone_on_the_cpu():
+    import chip_smoke
+
+    out = chip_smoke._on_poison(torch, 8, torch.device("cpu"), lambda: probes.probe_write(2, 4, "cpu"))
+    assert torch.equal(out, torch.full((2, 4), probes.WRITE_VALUE))
+
+
+def test_probe_designs_need_a_card_and_build_nothing_without_one(monkeypatch, capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_probe_designs",
+                                                  REPO / "tools" / "torch_probe_designs.py")
+    designs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(designs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(designs, "load_designs", lambda: pytest.fail("built without a card"))
+    assert designs.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    sizes = designs.edge_sizes(132, 1.0)
+    assert all(n % 4 == 0 and n > 0 for n in sizes.values())
+    assert sizes["buffer"] == 65536 * 4096
+    assert sizes["stretch+16B"] % designs.STRETCH == 4 and sizes["chunk+16B"] % designs.CHUNK == 4
+    chunks = -(-sizes["ragged"] // designs.CHUNK)  # the last one short
+    assert chunks % 132 == 1 and sizes["ragged"] % designs.CHUNK != 0
+    assert -(-sizes["ragged"] // designs.STRETCH) % (8 * 132) != 0
