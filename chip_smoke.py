@@ -143,7 +143,12 @@ Phases (any failure exits non-zero and prints no result):
     ``evaluate`` on the TUM sequence's first 40 frames with ``--match-gate
     30 --reassoc 2 --max-tracks 16384``, which SLAM solves, on the card and
     with ``--device cpu``: launches 12/6/0, both ATEs < 0.06 and within 0.02
-    of each other (phase 15 (c)'s bars).
+    of each other (phase 15 (c)'s bars). Last, on the card only, its first
+    80 frames with ``--blur separable --match-gate 30 --reassoc 2
+    --max-tracks 65536``: launches 0/10/0 and a finite trajectory of 80
+    rows; landmarks, ATE, RPE and RRE are readings (both packages lose the
+    dolly there; ``tools/torch_dolly_parity.py`` reads the CPU and the JAX
+    package beside it).
 
 17. sharding over ``torch.distributed`` (``_phase_sharding``): (a) world 1
     on NCCL in this process, the data-parallel frontend, keyframe-sharded
@@ -325,6 +330,8 @@ MULTICARD_TIMEOUT_S = 900  # the ranks' whole run, and the dry run's
 BA_ITERATIONS = 10
 SURFACE_FRAMES = 200  # each on-disk rehearsal sequence
 SURFACE_SOLVED_FRAMES = 40  # the rehearsal's solved variant, run on the card and on the CPU
+SURFACE_LONG_FRAMES = 80  # the rehearsal's gated cut past the loss, on the card only
+SURFACE_LONG_TRACKS = 65_536  # its track room (the port's evaluate --max-tracks)
 KITTI_SIZE = (1241, 376)  # KITTI odometry's gray frames, width x height
 MATMUL_ATOL = 1e-5
 PER_TRIO_CPU_FRAMES = 8  # phase 18: the batch's frames also run with device="cpu"
@@ -990,14 +997,16 @@ def _phase_solvers(torch, port, smi) -> None:
     _require(cost.item() * POSE_GRAPH_GAIN <= cost0, "pose graph: the cost fell by less than 100x")
 
 
-def _render_dolly(synthetic, rng, pts, k_mat, num_frames, size, step):
+def _render_dolly(synthetic, rng, pts, k_mat, num_frames, size, step, keep=None):
     """Frames of a slow lateral dolly (centre ``step·f``, a slow rotation)
     past a textured blob field: the recipe of the JAX package's SLAM tests
     and of ``benchmarks/slam_bench.py::render_sequence``, with the rotation
-    by Rodrigues in numpy. Returns ``(frames, rotations, translations)``."""
+    by Rodrigues in numpy. ``keep``: the frame indices rendered (default
+    all; a frame does not depend on the others). Returns ``(frames,
+    rotations, translations)``."""
     rpts, amps, sscales = synthetic.textured_blob_field(rng, pts)
     rots, ts, frames = [], [], []
-    for f in range(num_frames):
+    for f in range(num_frames) if keep is None else keep:
         r = _rodrigues([0.004 * f, -0.01 * f, 0.002 * f])
         t = -r @ np.array([step[0] * f, step[1] * f, 0.0])
         frames.append(synthetic.render_blob_image(
@@ -1019,18 +1028,20 @@ def _test_sequence(synthetic):
     return (*_render_dolly(synthetic, rng, pts, k_mat, 8, (320, 240), (0.28, 0.02)), k_mat)
 
 
-def _bench_sequence(synthetic, num_frames: int, w: int, h: int):
+def _bench_sequence(synthetic, num_frames: int, w: int, h: int, keep=None):
     """``benchmarks/slam_bench.py::render_sequence``, seed 0: the blob field
     extends along the dolly path at constant density, the focal length
-    scales with the width. Returns ``(frames, rotations, translations,
-    k_mat)``."""
+    scales with the width. ``keep``: the frame indices of the
+    ``num_frames``-frame sequence to render (default all). Returns
+    ``(frames, rotations, translations, k_mat)``."""
     rng = np.random.default_rng(0)
     focal = 260.0 * w / 320
     k_mat = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
     x_hi = 3.5 + 0.14 * num_frames
     n_pts = int(160 * (x_hi + 3.5) / 7.0)
     pts = rng.uniform([-3.5, -1.8, 4.0], [x_hi, 1.8, 9.0], size=(n_pts, 3))
-    return (*_render_dolly(synthetic, rng, pts, k_mat, num_frames, (w, h), (0.14, 0.01)), k_mat)
+    return (*_render_dolly(synthetic, rng, pts, k_mat, num_frames, (w, h), (0.14, 0.01), keep),
+            k_mat)
 
 
 def slam_bench_recipe(port, frames: int = SLAM_FRAMES, width: int = WIDTH, height: int = HEIGHT):
@@ -2487,7 +2498,8 @@ def _quiet(main, argv):
 
 
 def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, HEIGHT),
-                    kitti_size=KITTI_SIZE, solved_frames=SURFACE_SOLVED_FRAMES):
+                    kitti_size=KITTI_SIZE, solved_frames=SURFACE_SOLVED_FRAMES,
+                    long_frames=SURFACE_LONG_FRAMES):
     """Phase 16: the user surfaces, ``cli.main`` and ``evaluate.main``,
     in-process on ``dev``. Returns ``(launches, octave_err)``: the (K1, K2,
     K3) launches of the paths driven here, and the octave kernel's largest
@@ -2760,6 +2772,36 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
              "evaluate, solved variant: the sequence is not solved")
     _require(abs(metrics["ate_rmse"] - cpu_metrics["ate_rmse"]) < SLAM_ATE_GAP,
              "evaluate, solved variant: the card's ATE differs from the CPU's")
+
+    # (c) continued: the gated TUM cut past the frames SLAM solves, with the
+    # per-trio frontend and room for 65,536 tracks, on the card only. Both
+    # packages lose the dolly there (tools/torch_dolly_parity.py), so it is
+    # read, not held to a solve; the CPU's and the JAX package's readings come
+    # from that tool.
+    flags = ["--max-frames", str(long_frames), "--blur", "separable", "--match-gate",
+             f"{SLAM_MATCH_GATE_PX:g}", "--reassoc", "2", "--max-tracks", str(SURFACE_LONG_TRACKS)]
+    traj = os.path.join(work, "tum_long_traj.txt")
+    zero()
+    t0 = time.perf_counter()
+    rc, text = _quiet(evaluate.main, seqs["tum"][0] + flags + ["--out-traj", traj, *card])
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    _require(rc == 0, f"evaluate {' '.join(flags)}: exit code {rc}")
+    metrics = json.loads(text.strip().splitlines()[-1])
+    _, rots, trans = read_tum_trajectory(traj)
+    expected = (0, 2 * -(-long_frames // SLAM_CHUNK), 0)  # K2 twice a chunk, no K1 or K3
+    _say(
+        f"evaluate tum {' '.join(flags)}: launches K1/K2/K3 {launches} (expected {expected}); "
+        f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
+        f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg (readings), SLAM "
+        f"{metrics['slam_frames_per_s']} frames/s, {seconds:.2f} s for the whole command [{smi}]"
+    )
+    _require(metrics["frames"] == long_frames and len(rots) == long_frames,
+             f"evaluate, {long_frames}-frame cut: {metrics['frames']} frames, {len(rots)} rows")
+    _require(np.isfinite(rots).all() and np.isfinite(trans).all(),
+             f"evaluate, {long_frames}-frame cut: the trajectory is not finite")
+    if on_card:
+        _require(launches == expected, f"evaluate, {long_frames}-frame cut: launches {launches}")
     shutil.rmtree(work, ignore_errors=True)
     return tuple(total), octave_err
 

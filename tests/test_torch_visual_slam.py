@@ -10,6 +10,7 @@ The reference's runs here compile with JAX's persistent compilation cache
 switched off (``ROADMAP.md`` §3)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -182,27 +183,83 @@ def _inject_port_frontend(monkeypatch, cfg):
     monkeypatch.setattr(jfrontend, "detect_and_describe_batched_jit", frontend)
 
 
-@pytest.mark.parametrize("scene", ["dolly_reassoc", "loop_sketch"])
+# ``chip_smoke.py`` phase 16's TUM rehearsal (200 × 640×480 frames of the
+# bench dolly, seed 0) around frame 61, where the association of the two
+# packages first parts at 80 frames (``tools/torch_dolly_parity.py``), with
+# ``evaluate``'s SiftConfig and intrinsics (the TUM layout's), its gated
+# association flags and a track room that the three frames overflow (287
+# keypoints in the first).
+REHEARSAL_SPLIT_FRAMES = (59, 60, 61)
+REHEARSAL_SIFT = port.SiftConfig(num_octaves=4, scales_per_octave=3, max_keypoints_per_trio=512)
+REHEARSAL_GATED = dict(reassoc_window=2, max_match_px=30.0)
+REHEARSAL_SMALL_ROOM = 400
+
+
+@functools.cache
+def _rehearsal_split_frames():
+    """The rehearsal's frames around the split as ``evaluate`` decodes them,
+    the intrinsics it reads for them, and the port's described keypoints of
+    them."""
+    import chip_smoke
+    from sift_scale_space_extrema_detection_tpu_torch.data.tum import intrinsics_for
+    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
+
+    frames = chip_smoke._bench_sequence(
+        synthetic, chip_smoke.SURFACE_FRAMES, chip_smoke.WIDTH, chip_smoke.HEIGHT,
+        keep=REHEARSAL_SPLIT_FRAMES)[0]
+    k_mat = intrinsics_for("rgbd_dataset_freiburg1_rehearsal")  # write_rehearsal_sequence's root
+    pixels = np.clip(np.round(frames * 255.0), 0, 255).astype(np.uint8)
+    images = (pixels / 255.0).astype(np.float32)
+    described = port.detect_and_describe_batched(torch.from_numpy(images), REHEARSAL_SIFT,
+                                                 "separable", **CPU)
+    return images, k_mat, described
+
+
+@pytest.mark.parametrize(
+    "scene", ["dolly_reassoc", "loop_sketch", "dolly_gated_room", "dolly_gated_overflow"])
 def test_association_matches_the_reference_on_the_same_keypoints(monkeypatch, scene):
+    described = None
     if scene == "dolly_reassoc":
         images, _, _, k_mat = render_sequence(np.random.default_rng(0))
         cfg, kw = SIFT, dict(reassoc_window=2)
-    else:
+    elif scene == "loop_sketch":
         images, k_mat = loop_distractor_images(), K_LOOP
         cfg = port.SiftConfig(num_octaves=2, max_keypoints_per_trio=256)
         kw = dict(reassoc_window=0, loop_min_gap=3, loop_min_matches=8, loop_stride=1, loop_topk=2)
-    _inject_port_frontend(monkeypatch, cfg)
+    else:
+        images, k_mat, described = _rehearsal_split_frames()
+        cfg = REHEARSAL_SIFT
+        room = 65_536 if scene == "dolly_gated_room" else REHEARSAL_SMALL_ROOM
+        kw = dict(REHEARSAL_GATED, max_tracks=room)
+    if described is None:
+        _inject_port_frontend(monkeypatch, cfg)
+    else:
+        fields = {f.name: jnp.asarray(getattr(described, f.name).numpy())
+                  for f in dataclasses.fields(described)}
+        monkeypatch.setattr(jfrontend, "detect_and_describe_batched_jit",
+                            lambda images, sift_cfg, blur="separable": JDescribed(**fields))
     want = jslam.build_tracks_from_images(
         images, JSiftConfig(num_octaves=cfg.num_octaves), k_mat=k_mat, **kw
     )
     monkeypatch.setattr(pslam, "_pair_draws", jax_ransac_draws)
-    got = build_tracks_from_images(images, cfg, k_mat=k_mat, **kw, **CPU)
+    if described is None:
+        got = build_tracks_from_images(images, cfg, k_mat=k_mat, **kw, **CPU)
+    else:
+        got = pslam.build_tracks_from_described(described, k_mat, **kw, **CPU)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[2], want[2])
     assert got[1].sum() > 100
     if scene == "loop_sketch":
         assert (got[1][0] & got[1][10]).sum() >= 8  # the merge happened in both
+    if scene.startswith("dolly_gated"):
+        # The gate and the window both acted: a frame-2 keypoint re-acquired
+        # from frame 0 past frame 1 (the gate scaled by the frame gap).
+        assert (got[1][0] & ~got[1][1] & got[1][2]).any()
+    if scene == "dolly_gated_overflow":
+        # The room filled, and valid keypoints were left without a track.
+        assert got[1].shape[1] == REHEARSAL_SMALL_ROOM
+        assert got[1].sum(axis=1).tolist() != got[2].tolist()
 
 
 def _first_centre(rotations, translations):
@@ -289,3 +346,43 @@ def test_full_width_bench_sequence_through_both_packages():
         assert abs(gap) < 0.02, (bits, gap)
     assert readings["jax_own_pipeline_f32"]["ate"] > 0.5
     assert readings["jax_own_pipeline_solved_f32"]["ate"] < 0.06
+
+
+@pytest.mark.slow
+def test_rehearsal_association_at_80_frames_through_both_packages():
+    """Leg (a) of ``tools/torch_dolly_parity.py``: the association of both
+    packages on the port's keypoints of the TUM rehearsal's first 80 frames
+    (``evaluate``'s SiftConfig, ``blur="separable"``), gated at 30 px,
+    re-associating over 2 keyframes, with room for 65,536 tracks and the JAX
+    package's draws, as ``evaluate`` runs it (JAX in 32-bit mode). About six
+    minutes on the CPU.
+
+    - With the port's pair verification pinned to the JAX package's verdicts
+      on the same correspondences and keys, the two track tables are
+      bit-equal: matching, the ratio test, the cross-check, the gate (scaled
+      by the frame gap for re-association), re-association, new tracks and
+      the room make the reference's decisions at every frame.
+    - Unpinned, the tables part where the two pair verifications give
+      different verdicts (frame 61 on the machines measured): the minimal
+      8-point solves of ill-conditioned samples differ in float32 between the
+      two implementations, and one-ulp moves of that pair's pixels move the
+      JAX package's own verdict (``ROADMAP.md`` §3).
+
+    The tool prints the leg's JSON record (``-s``)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_dolly_parity", os.path.join(root, "tools", "torch_dolly_parity.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    images, k_mat, _, _ = tool.load_frames(80)
+    described = pslam.describe_frames(images, REHEARSAL_SIFT, 16, blur="separable", **CPU)
+    described = {f.name: getattr(described, f.name).numpy() for f in dataclasses.fields(described)}
+    ref = tool.Reference()
+    with ref.x64(False):
+        _, got, record = tool.leg_a(ref, described, k_mat, 65_536, jax_ransac_draws)
+    assert record["pinned"]["bit_equal"], record["pinned"]
+    assert record["bit_equal"] or record["first_stage"] == "pair verification", record
+    assert got[1].shape[1] > 16_384  # past the room of phase 15's solved recipe
