@@ -235,9 +235,24 @@ Phases (any failure exits non-zero and prints no result):
     the floating-point opcodes of the chain in ``cuobjdump -sass`` (f32:
     831 FADD, no FFMA; the compiler computes the 13 products once) and the
     float32 instructions/s they give. (d)
-    K1's and K3's reach: each launch timed in phases 5 and 10, the larger
+    K1's, K2's and K3's reach: each launch timed in phases 5 and 10, the larger
     of its bytes over the measured copy rate and its operations (taps,
     DoG differences, K1's scan) over the measured f32 chain's rate.
+22. the port's measuring entry points (``_phase_benchmarks``; the modules
+    of ``…_torch/benchmarks/``, each through its ``run`` at its script's
+    full default width, every count zeroed before the phase): ``bench`` (64
+    × 480×640, K1 only); ``frontend_bench --stages --describe`` with
+    ``--blur fused`` (K1, and K2 in the describe) and ``--blur cuda`` (K3,
+    and K2 in the describe), K1's reach at phase 21's ceilings;
+    ``ba_bench --breakdown`` (dense, 50 × 4,096 × 512) and ``--large`` (CG,
+    1,000 × 100,000 × 300), no kernel; ``slam_bench`` (40 × 640×480, the
+    dolly), ``--streaming``, ``--suite --seeds 1`` over the four shapes,
+    and the loop-closure regime of ``BASELINE.md`` (80 frames,
+    ``--trajectory loop --final-rounds 0``) with ``--loop-stride 1
+    --pose-graph`` and without closure, K2 only; ``descriptor_bench`` (the
+    11 warps against OpenCV), K2 only. Every number of every output is
+    finite; the JSON objects and the loop regime's ATEs beside the JAX
+    package's TPU readings are printed.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -247,7 +262,7 @@ The operation peak counts a fused multiply-add as two operations; the blur
 kernels may not fuse (it would change the rounding), so for them half that
 rate is the card's real ceiling. The bound keeps the published peak.
 
-``reach_ms`` (K1 and K3) is the same least time at the ceilings phase 21
+``reach_ms`` (K1, K2 and K3) is the same least time at the ceilings phase 21
 measured on this card instead of the published ones, and ``reach_by`` says
 which of the two sums is larger.
 
@@ -267,6 +282,24 @@ import time
 
 import numpy as np
 
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks import host_ms, sync
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks.ba_bench import make_problem
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks.bench import make_batch as _make_batch
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks.frontend_bench import (
+    PEAK_BYTES_PER_S,
+    PEAK_FLOP_PER_S,
+    blur_flop as _blur_flop,
+    bound as _bound,
+    octave_cost,
+    octave_sigmas as _octave_sigmas,
+    reach as _reach,
+)
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks.slam_bench import (
+    configs as slam_bench_configs,
+    render_sequence,
+    to_uint16,
+)
+
 BATCH, HEIGHT, WIDTH = 64, 480, 640
 CSRC = "sift_scale_space_extrema_detection_tpu_torch/ops/kernels/csrc/"
 PALLAS = "sift_scale_space_extrema_detection_tpu/ops/pallas/"
@@ -277,9 +310,7 @@ P99_PX = 0.1
 P99_THETA = 1e-3
 MIN_COSINE = 0.999
 NORM_ATOL = 1e-3
-# The card's published peaks (NVIDIA H100 SXM data sheet).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+# The card's published peaks (NVIDIA H100 SXM data sheet) are frontend_bench's.
 SAMPLE_FLOP = 40  # per gradient sample: 8 differences, 8 halvings, 2 blends of 9, clamps
 # Each kernel's time at these shapes before the octave and blur kernels
 # became one launch on shared-memory tiles (NVIDIA H100 80GB HBM3, 700.00 W,
@@ -345,23 +376,6 @@ BF16_BOUND = {"bf16_carry": 2.0**-8, "bf16_full": 2.0**-8, "bf16_pair": 2.0**-7}
 SASS_OPS = ("FMUL", "FADD", "FFMA", "HMUL2", "HADD2", "HFMA2")
 
 
-def _make_batch(batch: int, h: int, w: int) -> np.ndarray:
-    """The benchmark's frames: a smooth pattern with four blobs plus noise,
-    quantised to 8-bit levels (the same recipe as ``bench.py``)."""
-    rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    base = 0.4 + 0.2 * np.sin(xx / 9.0) * np.cos(yy / 11.0)
-    for cy, cx, r, a in [
-        (120, 160, 6.0, 0.5),
-        (300, 400, 10.0, -0.35),
-        (200, 520, 4.0, 0.45),
-        (380, 100, 8.0, 0.3),
-    ]:
-        base = base + a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
-    imgs = base[None] + 0.05 * rng.standard_normal((batch, h, w))
-    return (np.round(np.clip(imgs, 0.0, 1.0) * 255.0) / 255.0).astype(np.float32)
-
-
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -369,13 +383,6 @@ def _require(ok: bool, what: str) -> None:
 
 def _say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _octave_sigmas(cfg, octave):
-    return [
-        None if (octave > 0 and s == 0) else cfg.offset_sigma(octave, s)
-        for s in range(cfg.scales_per_octave_total)
-    ]
 
 
 def _event_ms(torch, fn, reps: int) -> float:
@@ -489,19 +496,6 @@ def _probe_designs():
     return module
 
 
-def _bound(n_bytes: float, flop: float) -> tuple[float, str]:
-    """``(bound_ms, bound_by)`` of work that moves ``n_bytes`` and does
-    ``flop`` float32 operations."""
-    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    by_flop = 1e3 * flop / PEAK_FLOP_PER_S
-    return (by_bytes, "bytes") if by_bytes >= by_flop else (by_flop, "operations")
-
-
-def _blur_flop(pixels: int, radius: int) -> int:
-    """Two passes of ``2r+1`` products and ``2r`` sums per pixel."""
-    return 2 * (2 * (2 * radius + 1) - 1) * pixels
-
-
 def _window_bytes(torch, stacks, table, ys, xs) -> float:
     """Bytes the window sampling must move for these slots: the slot table,
     the samples written for every slot, and for each valid slot its
@@ -581,43 +575,6 @@ def _two_view_scene(synthetic, blobs=TWO_VIEW_BLOBS, satellites=TWO_VIEW_SATELLI
     return np.stack(frames).astype(np.float32), k_mat, r2, t_dir
 
 
-def _ba_problem(rng, c: int, l: int, opc: int):
-    """The bundle-adjustment benchmark's problem (``benchmarks/ba_bench.py``),
-    as numpy float32 arrays: a ring of ``c`` cameras orbiting a cloud of
-    ``l`` points, ``opc`` observations per camera of points in front of it,
-    0.5 px of pixel noise, the points started 0.05 off the truth."""
-    dtype = np.float32
-    pts = rng.uniform([-4, -4, -4], [4, 4, 4], size=(l, 3)).astype(dtype)
-    k_mat = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], dtype)
-    radius = 12.0
-    rots, ts, cams, lms, uvs = [], [], [], [], []
-    for ci in range(c):
-        ang = 2.0 * np.pi * ci / max(c, 1)
-        r = _rodrigues([0.0, ang, 0.0]).astype(dtype)
-        center = radius * np.array([np.sin(ang), 0.1 * np.sin(3 * ang), -np.cos(ang)])
-        t = (-r @ center).astype(dtype)
-        depths = pts @ r.T[:, 2] + t[2]
-        front = np.where(depths > 2.0)[0]
-        sel = rng.choice(front, opc, replace=len(front) < opc)
-        xc = pts[sel] @ r.T + t
-        uv = xc[:, :2] / xc[:, 2:3] * 500.0 + [320, 240]
-        uv += 0.5 * rng.normal(size=uv.shape)
-        rots.append(r)
-        ts.append(t)
-        cams.append(np.full(opc, ci))
-        lms.append(sel)
-        uvs.append(uv)
-    return dict(
-        rotations=np.stack(rots),
-        translations=np.stack(ts),
-        points=pts + 0.05 * rng.normal(size=pts.shape).astype(dtype),
-        k_mat=k_mat,
-        camera=np.concatenate(cams).astype(np.int32),
-        landmark=np.concatenate(lms).astype(np.int32),
-        uv=np.concatenate(uvs).astype(dtype),
-    )
-
-
 def _circle_graph(rng, n: int, drift: float = 0.03):
     """An odometry chain around a circle plus the loop-closure edge
     ``n-1 → 0`` with true relative transforms, and initial poses drifted by
@@ -641,22 +598,12 @@ def _circle_graph(rng, n: int, drift: float = 0.03):
 
 
 def _sync(torch, dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    sync(dev)
 
 
 def _host_ms(torch, fn, reps: int, dev=None) -> float:
-    """Mean host-clock time of ``fn()`` over ``reps`` calls, synchronised
-    before and after (the card, unless ``dev`` is another device), after one
-    warm-up call."""
-    dev = torch.device("cuda") if dev is None else dev
-    fn()
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    _sync(torch, dev)
-    return 1e3 * (time.perf_counter() - t0) / reps
+    """``benchmarks.host_ms`` on the card, unless ``dev`` is another device."""
+    return host_ms(fn, torch.device("cuda") if dev is None else dev, reps)
 
 
 def _phase_oracle_leg(torch, port) -> None:
@@ -919,8 +866,8 @@ def _phase_solvers(torch, port, smi) -> None:
     sizes = {"dense": (50, 4096, 512), "cg": (1000, 100_000, 300)}
     iterations = 10
     for solver, (c, l, opc) in sizes.items():
-        state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc),
-                                 torch.device("cuda", 0))
+        state, obs = make_problem(np.random.default_rng(0), c, l, opc,
+                                  device=torch.device("cuda", 0))
         n_obs = c * opc
 
         def run(num_iterations=iterations, **kw):
@@ -999,11 +946,10 @@ def _phase_solvers(torch, port, smi) -> None:
 
 def _render_dolly(synthetic, rng, pts, k_mat, num_frames, size, step, keep=None):
     """Frames of a slow lateral dolly (centre ``step·f``, a slow rotation)
-    past a textured blob field: the recipe of the JAX package's SLAM tests
-    and of ``benchmarks/slam_bench.py::render_sequence``, with the rotation
-    by Rodrigues in numpy. ``keep``: the frame indices rendered (default
-    all; a frame does not depend on the others). Returns ``(frames,
-    rotations, translations)``."""
+    past a textured blob field: the recipe of the JAX package's SLAM tests,
+    with the rotation by Rodrigues in numpy. ``keep``: the frame indices
+    rendered (default all; a frame does not depend on the others). Returns
+    ``(frames, rotations, translations)``."""
     rpts, amps, sscales = synthetic.textured_blob_field(rng, pts)
     rots, ts, frames = [], [], []
     for f in range(num_frames) if keep is None else keep:
@@ -1028,41 +974,22 @@ def _test_sequence(synthetic):
     return (*_render_dolly(synthetic, rng, pts, k_mat, 8, (320, 240), (0.28, 0.02)), k_mat)
 
 
-def _bench_sequence(synthetic, num_frames: int, w: int, h: int, keep=None):
-    """``benchmarks/slam_bench.py::render_sequence``, seed 0: the blob field
-    extends along the dolly path at constant density, the focal length
-    scales with the width. ``keep``: the frame indices of the
-    ``num_frames``-frame sequence to render (default all). Returns
-    ``(frames, rotations, translations, k_mat)``."""
-    rng = np.random.default_rng(0)
-    focal = 260.0 * w / 320
-    k_mat = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
-    x_hi = 3.5 + 0.14 * num_frames
-    n_pts = int(160 * (x_hi + 3.5) / 7.0)
-    pts = rng.uniform([-3.5, -1.8, 4.0], [x_hi, 1.8, 9.0], size=(n_pts, 3))
-    return (*_render_dolly(synthetic, rng, pts, k_mat, num_frames, (w, h), (0.14, 0.01), keep),
-            k_mat)
-
-
 def slam_bench_recipe(port, frames: int = SLAM_FRAMES, width: int = WIDTH, height: int = HEIGHT):
-    """Phase 15's full-width SLAM recipe, ``benchmarks/slam_bench.py``'s
-    default: the frames (uint16, as the bench uploads them), the truth, the
+    """Phase 15's full-width SLAM recipe, the default of the port's
+    ``benchmarks.slam_bench`` (the JAX package's ``slam_bench.py``): its
+    dolly, seed 0 (uint16, as the bench uploads it), the truth, the
     configurations and the association arguments. ``solved`` holds the
     association arguments of the variant SLAM solves (the match gate and
     the track room, see phase 15 (c)). Returns a dict."""
-    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
-
-    images, gt_r, gt_t, k_mat = _bench_sequence(synthetic, frames, width, height)
+    images, gt_r, gt_t, k_mat = render_sequence(np.random.default_rng(0), frames, width, height)
+    sift_cfg, slam_cfg = slam_bench_configs()
     return dict(
-        images=np.round(np.clip(images, 0.0, 1.0) * 65535.0).astype(np.uint16),
+        images=to_uint16(images),
         gt_r=gt_r,
         gt_t=gt_t,
         k_mat=k_mat,
-        sift_cfg=port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256,
-                                 describe_compaction=0.5, descriptor_grid_size=16,
-                                 orientation_grid_size=16),
-        slam_cfg=port.SlamConfig(ba_interval=5, ba_window=8, ba_iterations=6,
-                                 final_ba_rounds=2),
+        sift_cfg=sift_cfg,
+        slam_cfg=slam_cfg,
         reassoc_window=2,
         solved=dict(max_match_px=SLAM_MATCH_GATE_PX, max_tracks=SLAM_MAX_TRACKS),
     )
@@ -1479,7 +1406,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
 
         # The sharded BA on phase 14's dense problem.
         c, l, opc = ba_sizes
-        state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
+        state, obs = make_problem(np.random.default_rng(0), c, l, opc, device=dev)
         _, single_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS, device=dev)
         scatter, scatter_cost = bundle_adjust(state, obs, num_iterations=BA_ITERATIONS,
                                               assembly="scatter", device=dev)
@@ -1621,17 +1548,6 @@ def _digest(torch, *tensors) -> str:
         h.update(f"{a.dtype}{a.shape}".encode())
         h.update(a.tobytes())
     return h.hexdigest()
-
-
-def _ba_tensors(torch, p, dev):
-    """``(BAState, Observations)`` of a :func:`_ba_problem` dict on ``dev``."""
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState, Observations
-
-    t = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
-    state = BAState(t["rotations"], t["translations"], t["points"], t["k_mat"])
-    obs = Observations(t["camera"], t["landmark"], t["uv"],
-                       torch.ones(t["camera"].shape[0], dtype=torch.bool, device=dev))
-    return state, obs
 
 
 def _stage_line(report) -> str:
@@ -1801,7 +1717,7 @@ def _shard_rank(rank, workdir: str) -> None:
 
         # (c) the sharded BA, twice on each problem.
         for name, c, l, opc in spec["ba"]:
-            state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
+            state, obs = make_problem(np.random.default_rng(0), c, l, opc, device=dev)
             reset_peak()
             out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
             _sync(torch, dev)
@@ -2288,7 +2204,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     try:
         mesh = make_mesh(1, device_type=dev.type)
         for name, (c, l, opc) in zip(("dense", "large"), ba_sizes):
-            state, obs = _ba_tensors(torch, _ba_problem(np.random.default_rng(0), c, l, opc), dev)
+            state, obs = make_problem(np.random.default_rng(0), c, l, opc, device=dev)
             if name == "dense":
                 distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
             _sync(torch, dev)
@@ -2457,8 +2373,8 @@ def descriptor_cosines(got, want):
 
 
 def write_rehearsal_sequence(fmt, work, frames, size):
-    """Phase 16's on-disk rehearsal sequence: ``frames`` frames of
-    ``_bench_sequence`` (``benchmarks/slam_bench.py``'s dolly, seed 0) at
+    """Phase 16's on-disk rehearsal sequence: ``frames`` frames of the port's
+    ``benchmarks.slam_bench.render_sequence`` (the bench's dolly, seed 0) at
     ``size`` (width, height), written under ``work`` by the port's writers
     in the TUM (``fmt="tum"``) or KITTI (``"kitti"``, sequence 00) layout.
     Returns ``(argv, pixels, paths)``: ``evaluate``'s positional arguments,
@@ -2469,9 +2385,8 @@ def write_rehearsal_sequence(fmt, work, frames, size):
         write_kitti_sequence,
         write_tum_sequence,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
 
-    images, rots, ts, k_mat = _bench_sequence(synthetic, frames, *size)
+    images, rots, ts, k_mat = render_sequence(np.random.default_rng(0), frames, *size)
     pixels = np.clip(np.round(images * 255.0), 0, 255).astype(np.uint8)
     if fmt == "tum":
         root = os.path.join(work, "rgbd_dataset_freiburg1_rehearsal")
@@ -3340,13 +3255,6 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     return launches
 
 
-def _scan_ops(pixels: int, n_dog: int) -> int:
-    """The octave kernel's 26-neighbour scan in operations: per DoG plane and
-    pixel 14 minima and maxima (its 3×3 neighbourhood, shared row by row),
-    per trio plane 4 more and 3 comparisons (``csrc/octave.cu``)."""
-    return pixels * (14 * n_dog + 7 * max(n_dog - 2, 0))
-
-
 def tap_tolerance(torch, x, taps, mode):
     """Per-element bound on |kernel - plain| of the tap chain ``mode`` on
     ``x`` with ``taps``: 0 for ``f32``. In the bf16 modes both round every
@@ -3401,14 +3309,16 @@ def sass_counts(text: str) -> dict:
     return mix
 
 
-def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB,
-                  long_rows=TAP_LONG_ROWS):
+def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, sample_work=None,
+                  gb=PROBE_GB, long_rows=TAP_LONG_ROWS):
     """Phase 21: the card's probes (K4-K7, ``csrc/probes.cu``) and the
-    ceilings they measure. ``octave_work`` and ``blur_work``: the (bytes,
-    operations) of each K1 and K3 launch timed in phases 5 and 10 (None: no
-    reach). Returns ``(records, reach)``: the four kernels' entries of the
-    ``kernels`` line and ``{"fused_octave": (reach_ms, by), "blur_fused":
-    (...)}`` or None."""
+    ceilings they measure. ``octave_work``, ``blur_work`` and
+    ``sample_work``: the (bytes, operations) of each K1, K3 and K2 launch
+    timed in phases 5 and 10 (None: no reach). Returns ``(records,
+    reach)``: the four kernels' entries of the ``kernels`` line and
+    ``{"fused_octave": (reach_ms, by), "blur_fused": (...),
+    "window_sample_pair": (...), "ceilings": (copy bytes/s, float32
+    operations/s)}`` or None."""
     from sift_scale_space_extrema_detection_tpu_torch.benchmarks import bw_probe, tap_probe
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build, probes
 
@@ -3575,24 +3485,22 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB
     # (d) K1 and K3 against the ceilings just measured: each launch's bytes
     # over the copy rate, or its operations over the chain's rate.
     copy_bps = gbs["copy"] * 1e9
-
-    def reach(work):
-        by_bytes = sum(b / copy_bps for b, _ in work)
-        by_ops = sum(o / tap_rate for _, o in work)
-        ms = 1e3 * sum(max(b / copy_bps, o / tap_rate) for b, o in work)
-        return ms, "bytes" if by_bytes >= by_ops else "operations"
-
     if octave_work is None:
         _say(f"probes (d): no K1/K3 launches given, no reach; phase 21 took "
              f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
         reaches = None
     else:
-        reaches = {"fused_octave": reach(octave_work), "blur_fused": reach(blur_work)}
+        reaches = {"fused_octave": _reach(octave_work, copy_bps, tap_rate),
+                   "blur_fused": _reach(blur_work, copy_bps, tap_rate),
+                   "window_sample_pair": _reach(sample_work or [], copy_bps, tap_rate),
+                   "ceilings": (copy_bps, tap_rate)}
         _say(
             f"probes (d), reach at the measured ceilings ({gbs['copy']:.1f} GB/s copy, "
             f"{tap_rate / 1e12:.2f} T float32 operations/s): fused_octave "
             f"{reaches['fused_octave'][0]:.4f} ms by {reaches['fused_octave'][1]}, blur_fused "
-            f"{reaches['blur_fused'][0]:.4f} ms by {reaches['blur_fused'][1]}; phase 21 took "
+            f"{reaches['blur_fused'][0]:.4f} ms by {reaches['blur_fused'][1]}, "
+            f"window_sample_pair {reaches['window_sample_pair'][0]:.4f} ms by "
+            f"{reaches['window_sample_pair'][1]}; phase 21 took "
             f"{time.perf_counter() - t_phase:.1f} s [{smi}]"
         )
     tap_bytes = 4 * (probes.ROWS + probes.NTAPS) * probes.W + 4 * probes.ROWS * probes.W
@@ -3622,6 +3530,124 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, gb=PROBE_GB
         for name, (where, err, ms, plain, bound, library) in work.items()
     ]
     return records, reaches
+
+
+# Phase 22: the loop-closure regime of BASELINE.md:400-421 and the JAX
+# package's TPU readings of it there (ATE without closure, with closure and
+# the pose graph). Readings to print beside the port's, not targets.
+LOOP_REGIME_FRAMES = 80
+LOOP_REGIME_TPU_ATE = {"no closure": 0.440, "closure + pose graph": 0.198}
+
+
+def _finite_numbers(value, path="") -> list:
+    """The paths of the numbers in a benchmark's JSON object that are not
+    finite (``None`` is a field with no reading, as on the CPU)."""
+    if isinstance(value, dict):
+        return [p for k, v in value.items() for p in _finite_numbers(v, f"{path}.{k}")]
+    if isinstance(value, (list, tuple)):
+        return [p for i, v in enumerate(value) for p in _finite_numbers(v, f"{path}[{i}]")]
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return [] if np.isfinite(value) else [path]
+    return []
+
+
+def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames=SLAM_FRAMES,
+                      size=(WIDTH, HEIGHT), loop_frames=LOOP_REGIME_FRAMES, batch=BATCH,
+                      ba_sizes=None, warps=None):
+    """Phase 22: the port's measuring entry points (``…_torch/benchmarks/``)
+    through their ``run``, at the scripts' full default widths: ``bench``;
+    ``frontend_bench --stages --describe`` with ``--blur fused`` and
+    ``cuda``; ``ba_bench`` dense (50 × 4,096 × 512, ``--breakdown``) and
+    ``--large``; ``slam_bench``'s headline run, ``--streaming``, ``--suite``
+    over the four shapes at ``suite_seeds`` seeds, and the loop-closure regime
+    (80 frames, ``--final-rounds 0``) with ``--loop-stride 1 --pose-graph``
+    and without closure; ``descriptor_bench``. ``ceilings``: phase 21's
+    measured (copy bytes/s, float32 operations/s) for K1's reach. Every
+    number of every output is finite, and each path launches the kernels it
+    runs: K1 in ``bench`` and ``--blur fused``, K3 with ``--blur cuda``, K2
+    in every describe, every SLAM mode and ``descriptor_bench`` (the modules
+    raise where a kernel of their path was launched no time), and no other.
+    Every count is zeroed before the phase; returns its (K1, K2, K3)
+    launches. The other arguments cut it for a CPU rehearsal."""
+    import tempfile
+
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
+        ba_bench,
+        bench,
+        descriptor_bench,
+        frontend_bench,
+        kernel_counts,
+        slam_bench,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
+        window_sample_pair,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    t_phase = time.perf_counter()
+    outputs = {}
+
+    def check(name, out, want):
+        """``out`` finite; on the card the kernels ``want`` names launched
+        (``{kernel: True}``) or not (``False``) in every launch record."""
+        bad = _finite_numbers(out)
+        _require(not bad, f"benchmarks: {name} has non-finite readings at {bad}")
+        records = [out["launches"]] if "fused_octave" in out["launches"] else list(
+            out["launches"].values())
+        if on_card:
+            for rec in records:
+                for kernel, launched in want.items():
+                    _require(bool(rec[kernel]) == launched,
+                             f"benchmarks: {name} launched {kernel} {rec[kernel]} times")
+        outputs[name] = out
+        _say(f"benchmarks {name}: {json.dumps(out)} [{smi}]")
+
+    k1, k2, k3 = "fused_octave", "window_sample_pair", "blur_fused"
+    device = str(dev)
+    check("bench", bench.run(batch=batch, height=size[1], width=size[0], device=device),
+          {k1: True, k2: False, k3: False})
+    for blur, want in (("fused", {k1: True, k3: False}), ("cuda", {k1: False, k3: True})):
+        out = frontend_bench.run(batch=batch, blur=blur, stages=True, describe=True,
+                                 height=size[1], width=size[0], device=device,
+                                 **({} if ceilings is None else dict(
+                                     copy_bytes_per_s=ceilings[0], ops_per_s=ceilings[1])))
+        _require(out["launches"]["describe"][k2] > 0 and out["launches"]["detect"][k2] == 0
+                 or not on_card, f"benchmarks: frontend_bench --blur {blur} K2 launches")
+        check(f"frontend_bench --blur {blur}", out, want)
+    none = {k1: False, k2: False, k3: False}
+    dense, large = ba_sizes or (SHARD_BA, None)
+    check("ba_bench --breakdown", ba_bench.run(*dense, breakdown=True, device=device), none)
+    check("ba_bench --large", ba_bench.run(large=True, device=device) if large is None
+          else ba_bench.run(*large, solver="cg", device=device), none)
+    slam_want = {k1: False, k2: True, k3: False}
+    slam = dict(frames=slam_frames, size=f"{size[0]}x{size[1]}", device=device)
+    with tempfile.TemporaryDirectory() as cache:
+        slam["render_cache"] = cache
+        check("slam_bench", slam_bench.run(**slam), slam_want)
+        check("slam_bench --streaming", slam_bench.run(**slam, streaming=True), slam_want)
+        suite = slam_bench.run(**slam, suite=True, seeds=suite_seeds)
+        _require(len(suite["rows"]) == 4 * suite_seeds, "benchmarks: the suite's rows")
+        check(f"slam_bench --suite --seeds {suite_seeds}", suite, slam_want)
+        loop = dict(slam, frames=loop_frames, trajectory="loop", final_rounds=0)
+        closed = slam_bench.run(**loop, loop_stride=1, pose_graph=True)
+        check("slam_bench --trajectory loop --loop-stride 1 --pose-graph", closed, slam_want)
+        opened = slam_bench.run(**loop)
+        check("slam_bench --trajectory loop", opened, slam_want)
+    _say(f"benchmarks, the loop-closure regime ({loop_frames} frames, --final-rounds 0): ATE "
+         f"{opened['ate']} without closure, {closed['ate']} with --loop-stride 1 "
+         f"--pose-graph; the JAX package's TPU readings (BASELINE.md, not targets): "
+         f"{LOOP_REGIME_TPU_ATE} [{smi}]")
+    check("descriptor_bench", descriptor_bench.run(device=device, warps=warps),
+          {k1: False, k2: True, k3: False})
+    launches = kernel_counts()
+    _say(f"benchmarks: phase 22 launched {launches} and took "
+         f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return tuple(launches[k] for k in (k1, k2, k3)), outputs
 
 
 def main() -> int:
@@ -3797,13 +3823,9 @@ def main() -> int:
         args = (base, _octave_sigmas(cfg, octave), spo, thr)
         up2 = octave == 0
         # Least work: read the base; write DoG, seed and 2-byte masks.
-        pixels = base.numel() * (4 if up2 else 1)
-        n_scales = cfg.scales_per_octave_total
-        radii = [0 if sg is None else kernel_radius(sg) for sg in args[1]]
-        octave_bytes = 4 * base.numel() + pixels * (4 * (n_scales - 1) + 4 + 2)
-        octave_flop = sum(_blur_flop(pixels, r) for r in radii) + pixels * (n_scales - 1)
+        octave_bytes, octave_flop, scan = octave_cost(base.numel(), args[1], up2)
         octave_bounds.append(_bound(octave_bytes, octave_flop))
-        octave_work.append((octave_bytes, octave_flop + _scan_ops(pixels, n_scales - 1)))
+        octave_work.append((octave_bytes, octave_flop + scan))
 
         def kernel(args=args, up2=up2):
             return fused_octave(*args, upsample2x=up2)
@@ -3936,6 +3958,7 @@ def main() -> int:
     describe_compact(stacks, keypoints_list, cfg, sample_fn=recording)
     _require(len(stages) == 2, f"{len(stages)} describe stages sampled")
     sample_err, sample_ms, sample_plain_ms, sample_bounds = 0.0, [], [], []
+    sample_work = []  # (bytes, operations) of each stage: its bound, phase 21's reach
     for name, (table, ys, xs) in zip(("orientation", "descriptor"), stages):
         got = window_sample_pair(stacks, table, ys, xs)
         want = window_sample_pair_reference(stacks, table, ys, xs)
@@ -4038,9 +4061,9 @@ def main() -> int:
             10, 2,
         )
         n_valid = int((table[:, 3] != 0).sum())
-        bound = _bound(
-            _window_bytes(torch, stacks, table, ys, xs), SAMPLE_FLOP * n_valid * ys.shape[1]
-        )
+        sample_work.append((_window_bytes(torch, stacks, table, ys, xs),
+                            SAMPLE_FLOP * n_valid * ys.shape[1]))
+        bound = _bound(*sample_work[-1])
         sample_ms.append(k_ms)
         sample_plain_ms.append(p_ms)
         sample_bounds.append(bound)
@@ -4211,10 +4234,7 @@ def main() -> int:
     bk_ms, bp_ms, _ = _in_turns(
         torch, lambda: blur_fused(base, sigmas[-1]), lambda: blur_separable(base, sigmas[-1]), 10, 3
     )
-    n_scales = len(sigmas)
-    octave_bound = _bound(base.numel() * (4 + 4 * (n_scales - 1) + 4 + 2),
-                          sum(_blur_flop(base.numel(), r) for r in radii)
-                          + base.numel() * (n_scales - 1))
+    octave_bound = _bound(*octave_cost(base.numel(), sigmas, False)[:2])
     blur_bound_deep = _bound(8 * base.numel(), _blur_flop(base.numel(), max(radii)))
     _say(
         f"clamped mode, octave {deep} {tuple(base.shape)} radii {radii}: octave kernel vs "
@@ -4258,7 +4278,8 @@ def main() -> int:
         multi_launches = (0, 0, 0)
         _say("phase 20 (the sharded paths across cards, one NCCL rank a card) needs several "
              "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
-    probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work)
+    probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work, sample_work)
+    bench_launches, _ = _phase_benchmarks(torch, smi, device, reach["ceilings"])
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -4271,7 +4292,8 @@ def main() -> int:
                 "replaces": PALLAS + "octave.py:437",
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
                 + stream_launches[0] + surface_launches[0] + shard_launches[0]
-                + blur_path_launches[0] + orbax_launches[0] + multi_launches[0],
+                + blur_path_launches[0] + orbax_launches[0] + multi_launches[0]
+                + bench_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -4288,13 +4310,16 @@ def main() -> int:
                 "replaces": PALLAS + "describe.py:288",
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
                 + stream_launches[1] + surface_launches[1] + shard_launches[1]
-                + blur_path_launches[1] + orbax_launches[1] + multi_launches[1],
+                + blur_path_launches[1] + orbax_launches[1] + multi_launches[1]
+                + bench_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
                 "bound_ms": sample_bound_ms,
                 "bound_by": max(sample_bounds)[1],
                 "library_ms": None,
+                "reach_ms": reach["window_sample_pair"][0],
+                "reach_by": reach["window_sample_pair"][1],
             },
             {
                 "name": "blur_fused",
@@ -4303,7 +4328,7 @@ def main() -> int:
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
                 + surface_launches[2] + shard_launches[2] + blur_path_launches[2]
-                + orbax_launches[2] + multi_launches[2],
+                + orbax_launches[2] + multi_launches[2] + bench_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

@@ -1,12 +1,23 @@
-"""The port's probes of the card (``bw_probe``, ``tap_probe``), named after
-the JAX package's ``benchmarks/`` scripts, with the helpers they share.
+"""The port's measuring entry points, named after the JAX package's scripts:
+the card's probes (``bw_probe``, ``tap_probe``) and the benchmarks
+(``bench``, ``frontend_bench``, ``ba_bench``, ``slam_bench``,
+``descriptor_bench``), with the helpers they share.
 
-Each runs on the card unless ``--device cpu`` is given; without a card it
-exits with a message and never carries on on the CPU by itself.
+Each runs as ``python -m sift_scale_space_extrema_detection_tpu_torch.benchmarks.<name>``,
+on the card unless ``--device cpu`` is given; without a card it exits with a
+message and never carries on on the CPU by itself. A benchmark's ``run(**kw)``
+returns the JSON object that its ``main(argv)`` prints as its last line.
+
+Timing on the card: a whole call is timed by the host clock around work that
+ends in ``torch.cuda.synchronize()``, after a warm-up pass (:func:`host_ms`,
+:func:`median_ms`); a stage with a synchronise between stages; peak memory
+is ``max_memory_allocated`` after ``reset_peak_memory_stats``
+(:func:`peak_gib`).
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import time
 
@@ -58,3 +69,89 @@ def time_ms(fn, iters: int, device: torch.device) -> float:
     for _ in range(iters):
         fn()
     return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card's work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_ms(fn, device: torch.device, reps: int = 1, warmup: int = 1) -> float:
+    """Mean host-clock milliseconds of ``fn()`` over ``reps`` back-to-back
+    calls, after ``warmup`` calls, synchronised before and after."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(device)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def median_ms(fn, device: torch.device, repeats: int, warmup: int = 1) -> tuple[float, list[float]]:
+    """The median of ``repeats`` synchronised host-clock times of one call of
+    ``fn()`` after ``warmup`` calls, and the times themselves."""
+    times = [host_ms(fn, device, 1, warmup if i == 0 else 0) for i in range(repeats)]
+    return statistics.median(times), times
+
+
+def peak_gib(fn, device: torch.device):
+    """``(fn(), peak GiB)``: the card's largest allocation during the call
+    (None on the CPU)."""
+    if device.type != "cuda":
+        return fn(), None
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    sync(device)
+    return out, torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def device_entry(device: torch.device):
+    """The ``device`` entry of a benchmark's JSON object: the card's name and
+    power limit (``card_smi``; the name from torch where there is no
+    ``nvidia-smi``), or ``"cpu"``."""
+    if device.type != "cuda":
+        return "cpu"
+    smi = card_smi()
+    name, _, limit = (smi or "").partition(", ")
+    return {"name": name or torch.cuda.get_device_name(device), "power_limit": limit or None}
+
+
+def kernel_counts() -> dict:
+    """The launch counts of the port's three path kernels: K1 (the fused
+    octave), K2 (the describe stages' window sampling), K3 (the blur)."""
+    from ..ops.kernels.blur import blur_fused
+    from ..ops.kernels.describe import window_sample_pair
+    from ..ops.kernels.octave import fused_octave
+
+    return {
+        "fused_octave": fused_octave.launches,
+        "window_sample_pair": window_sample_pair.launches,
+        "blur_fused": blur_fused.launches,
+    }
+
+
+def launches_since(before: dict) -> dict:
+    """Each path kernel's launches since ``before = kernel_counts()``."""
+    return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def path_kernels(blur: str, describe: bool) -> tuple[str, ...]:
+    """The kernels a frontend path launches on the card: K1 on ``blur="fused"``,
+    K3 on ``"cuda"``/``"pallas"``, K2 wherever it describes."""
+    kernels = ("fused_octave",) if blur == "fused" else ()
+    kernels += ("blur_fused",) if blur in ("cuda", "pallas") else ()
+    return kernels + (("window_sample_pair",) if describe else ())
+
+
+def require_launches(device: torch.device, launches: dict, kernels, what: str) -> None:
+    """On the card, a path that should launch one of ``kernels`` and launched
+    it no time is a failure (``RuntimeError``), not a reading."""
+    if device.type != "cuda":
+        return
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"{what}: launched {missing} no time on the card ({launches})")

@@ -660,17 +660,10 @@ def test_data_parallel_frontend_on_card_equals_the_batched_one(device, nccl_mesh
 
 
 def test_distributed_bundle_adjust_on_card_at_world_1(device, nccl_mesh):
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
-        BAState,
-        Observations,
-        bundle_adjust,
-    )
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks.ba_bench import make_problem
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
 
-    p = chip_smoke._ba_problem(np.random.default_rng(0), 6, 128, 64)
-    state = BAState(*(torch.from_numpy(p[k]) for k in ("rotations", "translations", "points",
-                                                       "k_mat")))
-    obs = Observations(torch.from_numpy(p["camera"]), torch.from_numpy(p["landmark"]),
-                       torch.from_numpy(p["uv"]), torch.ones(6 * 64, dtype=torch.bool))
+    state, obs = make_problem(np.random.default_rng(0), 6, 128, 64)
     _, want = bundle_adjust(state, obs, num_iterations=10)
     out, cost = port.parallel.distributed_bundle_adjust(state, obs, nccl_mesh, num_iterations=10)
     again, cost_again = port.parallel.distributed_bundle_adjust(state, obs, nccl_mesh,

@@ -183,30 +183,31 @@ def _inject_port_frontend(monkeypatch, cfg):
     monkeypatch.setattr(jfrontend, "detect_and_describe_batched_jit", frontend)
 
 
-# ``chip_smoke.py`` phase 16's TUM rehearsal (200 × 640×480 frames of the
-# bench dolly, seed 0) around frame 61, where the association of the two
-# packages first parts at 80 frames (``tools/torch_dolly_parity.py``), with
-# ``evaluate``'s SiftConfig and intrinsics (the TUM layout's), its gated
-# association flags and a track room that the three frames overflow (287
-# keypoints in the first).
-REHEARSAL_SPLIT_FRAMES = (59, 60, 61)
+# Three frames of ``chip_smoke.py`` phase 16's TUM rehearsal (200 × 640×480
+# frames of the bench dolly, seed 0), with ``evaluate``'s SiftConfig and
+# intrinsics (the TUM layout's), its gated association flags and a track
+# room that the three frames overflow (287 keypoints in the first). Over the
+# whole rehearsal the two packages' associations first part at frame 80
+# (pair 79→80), in pair verification (``tools/torch_dolly_parity.py
+# --frames 200 --max-tracks 65536 --legs a``); through frame 79 they are
+# bit-equal.
+REHEARSAL_FRAMES = (59, 60, 61)
 REHEARSAL_SIFT = port.SiftConfig(num_octaves=4, scales_per_octave=3, max_keypoints_per_trio=512)
 REHEARSAL_GATED = dict(reassoc_window=2, max_match_px=30.0)
 REHEARSAL_SMALL_ROOM = 400
 
 
 @functools.cache
-def _rehearsal_split_frames():
-    """The rehearsal's frames around the split as ``evaluate`` decodes them,
+def _rehearsal_frames():
+    """The rehearsal's three frames as ``evaluate`` decodes them,
     the intrinsics it reads for them, and the port's described keypoints of
     them."""
     import chip_smoke
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks.slam_bench import render_sequence
     from sift_scale_space_extrema_detection_tpu_torch.data.tum import intrinsics_for
-    from sift_scale_space_extrema_detection_tpu_torch.utils import synthetic
 
-    frames = chip_smoke._bench_sequence(
-        synthetic, chip_smoke.SURFACE_FRAMES, chip_smoke.WIDTH, chip_smoke.HEIGHT,
-        keep=REHEARSAL_SPLIT_FRAMES)[0]
+    frames = render_sequence(np.random.default_rng(0), chip_smoke.SURFACE_FRAMES,
+                             chip_smoke.WIDTH, chip_smoke.HEIGHT, keep=REHEARSAL_FRAMES)[0]
     k_mat = intrinsics_for("rgbd_dataset_freiburg1_rehearsal")  # write_rehearsal_sequence's root
     pixels = np.clip(np.round(frames * 255.0), 0, 255).astype(np.uint8)
     images = (pixels / 255.0).astype(np.float32)
@@ -227,7 +228,7 @@ def test_association_matches_the_reference_on_the_same_keypoints(monkeypatch, sc
         cfg = port.SiftConfig(num_octaves=2, max_keypoints_per_trio=256)
         kw = dict(reassoc_window=0, loop_min_gap=3, loop_min_matches=8, loop_stride=1, loop_topk=2)
     else:
-        images, k_mat, described = _rehearsal_split_frames()
+        images, k_mat, described = _rehearsal_frames()
         cfg = REHEARSAL_SIFT
         room = 65_536 if scene == "dolly_gated_room" else REHEARSAL_SMALL_ROOM
         kw = dict(REHEARSAL_GATED, max_tracks=room)
@@ -362,11 +363,11 @@ def test_rehearsal_association_at_80_frames_through_both_packages():
       bit-equal: matching, the ratio test, the cross-check, the gate (scaled
       by the frame gap for re-association), re-association, new tracks and
       the room make the reference's decisions at every frame.
-    - Unpinned, the tables part where the two pair verifications give
-      different verdicts (frame 61 on the machines measured): the minimal
-      8-point solves of ill-conditioned samples differ in float32 between the
-      two implementations, and one-ulp moves of that pair's pixels move the
-      JAX package's own verdict (``ROADMAP.md`` §3).
+    - Unpinned, the tables are bit-equal through these 80 frames on the
+      machines measured; where they part (frame 80 of the rehearsal's 200),
+      it is where the two pair verifications give different verdicts: the
+      minimal 8-point solves of ill-conditioned samples differ in float32
+      between the two implementations (``ROADMAP.md`` §3).
 
     The tool prints the leg's JSON record (``-s``)."""
     import importlib.util

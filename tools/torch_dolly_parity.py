@@ -275,10 +275,10 @@ def patched(module, name, value):
         setattr(module, name, saved)
 
 
-def stage_report(ref, described, k_mat, f, jax_draws):
+def stage_report(ref, described, k_mat, f, jax_draws, gate_px=GATE_PX):
     """Each stage's outputs at the frame pair ``f-1 → f`` in both packages,
-    on the same inputs; returns the first stage that differs and its
-    evidence."""
+    on the same inputs (``gate_px``: the motion gate, None for none);
+    returns the first stage that differs and its evidence."""
     import torch
 
     from sift_scale_space_extrema_detection_tpu_torch.models import slam as pslam
@@ -315,7 +315,7 @@ def stage_report(ref, described, k_mat, f, jax_draws):
     idx, ok = j_idx, np.asarray(jm[1].valid)
     dx = xs[b][np.clip(idx, 0, xs.shape[1] - 1)] - xs[a]
     dy = ys[b][np.clip(idx, 0, ys.shape[1] - 1)] - ys[a]
-    gated = ok & (dx * dx + dy * dy <= GATE_PX**2)
+    gated = ok if gate_px is None else ok & (dx * dx + dy * dy <= gate_px**2)
     src = np.nonzero(gated)[0]
     dst = idx[src]
 

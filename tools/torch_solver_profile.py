@@ -60,11 +60,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("torch_solver_profile: no CUDA device")
     import sift_scale_space_extrema_detection_tpu_torch as port
-    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import (
-        BAState,
-        Observations,
-        bundle_adjust,
-    )
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks.ba_bench import make_problem
+    from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
     from sift_scale_space_extrema_detection_tpu_torch.sfm.pnp import solve_pnp
     from sift_scale_space_extrema_detection_tpu_torch.sfm.pose_graph import (
         PoseGraphEdges,
@@ -118,11 +115,7 @@ def main() -> int:
         ("dense", "scatter", (50, 4096, 512)),
         ("cg", "sorted", (1000, 100_000, 300)),
     ):
-        p = {k: torch.from_numpy(v).cuda()
-             for k, v in chip_smoke._ba_problem(np.random.default_rng(0), c, l, opc).items()}
-        state = BAState(p["rotations"], p["translations"], p["points"], p["k_mat"])
-        obs = Observations(p["camera"], p["landmark"], p["uv"],
-                           torch.ones(c * opc, dtype=torch.bool, device="cuda"))
+        state, obs = make_problem(np.random.default_rng(0), c, l, opc, device="cuda")
         _profiled(
             torch,
             f"bundle_adjust {solver}/{assembly}, {c} x {l} x {c * opc}, 3 LM iterations",
