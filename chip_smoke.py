@@ -253,6 +253,17 @@ Phases (any failure exits non-zero and prints no result):
     11 warps against OpenCV), K2 only. Every number of every output is
     finite; the JSON objects and the loop regime's ATEs beside the JAX
     package's TPU readings are printed.
+23. the last three measuring scripts' counterparts (``_phase_scaling``):
+    (a) ``benchmarks.scatter_probe`` at the script's size (O 25,600, L
+    4,096, C 50) and at 16x its O and L (409,600, 65,536): every row
+    finite, the sorted route (``sfm/ba.py``'s production reduction)
+    bit-equal on a rerun and within 1e-4 of ``index_add_``'s sums; (b)
+    ``benchmarks.scaling_bench --devices 1`` through its torchrun route on
+    one NCCL rank: every reading finite, its ranks' bars held, K1 and K2
+    launched by its frontend leg and K2 by its SLAM leg (their launches
+    counted in the kernels' record); (c) a line naming
+    ``tools/torch_multicard_phase.py``, which runs ``scaling_bench
+    --devices 4`` and ``multihost_bench --nproc 2`` on four cards.
 
 A kernel's ``bound_ms`` is the least time the card could take: the larger
 of the bytes that must move (each input read once, each output written
@@ -282,7 +293,12 @@ import time
 
 import numpy as np
 
-from sift_scale_space_extrema_detection_tpu_torch.benchmarks import host_ms, sync
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
+    digest,
+    host_ms,
+    sync,
+    torchrun_ranks,
+)
 from sift_scale_space_extrema_detection_tpu_torch.benchmarks.ba_bench import make_problem
 from sift_scale_space_extrema_detection_tpu_torch.benchmarks.bench import make_batch as _make_batch
 from sift_scale_space_extrema_detection_tpu_torch.benchmarks.frontend_bench import (
@@ -1538,18 +1554,6 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     return tuple(total), max(octave_err, rank_octave_err), max(sample_err, rank_sample_err)
 
 
-def _digest(torch, *tensors) -> str:
-    """SHA-256 of tensors' dtypes, shapes and bytes (on the host)."""
-    import hashlib
-
-    h = hashlib.sha256()
-    for t in tensors:
-        a = t.detach().cpu().contiguous().numpy()
-        h.update(f"{a.dtype}{a.shape}".encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
-
-
 def _stage_line(report) -> str:
     return ", ".join(f"{name} {v['ms_per_call'] * v['calls']:.1f} ms/{v['calls']}"
                      for name, v in report["stages"].items())
@@ -1683,7 +1687,7 @@ def _shard_rank(rank, workdir: str) -> None:
                        peak_gib=peak_gib(),
                        peak_rise_bytes=torch.cuda.max_memory_allocated(dev) - before
                        if on_card else None,
-                       digests={name: _digest(torch, t)
+                       digests={name: digest(t)
                                 for name, t in _described_fields(got).items()},
                        ms=timed(run, spec["repeats"]))
             local = type(got)(**{k: v[rank * share:(rank + 1) * share]
@@ -1711,7 +1715,7 @@ def _shard_rank(rank, workdir: str) -> None:
                 return match_against_keyframes_sharded(*matching, mesh)
 
             got = match()
-            rec["match"] = dict(digest=_digest(torch, *got), matches=int(got[2].sum()),
+            rec["match"] = dict(digest=digest(*got), matches=int(got[2].sum()),
                                 ms=timed(match, spec["repeats"]))
             del matching, got
 
@@ -1728,7 +1732,7 @@ def _shard_rank(rank, workdir: str) -> None:
             seconds = time.perf_counter() - t0
             rec[f"ba_{name}"] = dict(
                 cost=cost.item(), rms=float(torch.sqrt(2.0 * cost / (c * opc))),
-                digest=_digest(torch, out.rotations, out.translations, out.points, cost),
+                digest=digest(out.rotations, out.translations, out.points, cost),
                 rerun_equal=_same_solve(torch, out, again, cost, cost_again),
                 rerun_max_diff=max((getattr(out, f) - getattr(again, f)).abs().max().item()
                                    for f in ("rotations", "translations", "points")),
@@ -1766,8 +1770,7 @@ def _shard_rank(rank, workdir: str) -> None:
                     ate=port.evaluate_ate(result, gt_r, gt_t, device=dev), bas=list(bas),
                     launches=counts(), seconds=seconds,
                     landmarks=int(result.landmark_valid.sum()),
-                    digest=_digest(torch, torch.from_numpy(result.rotations),
-                                   torch.from_numpy(result.translations)))
+                    digest=digest(result.rotations, result.translations))
             prof = StageProfile()
             slam(0, profile=prof)
             rec["slam_0"]["stages"] = _stage_line(prof.report(total_frames=len(frames)))
@@ -1790,8 +1793,7 @@ def _shard_rank(rank, workdir: str) -> None:
             rec["session"] = dict(
                 ate=port.evaluate_ate(streamed, gt_r, gt_t, device=dev), bas=list(bas),
                 launches=counts(), step_ms=steps,
-                digest=_digest(torch, torch.from_numpy(streamed.rotations),
-                               torch.from_numpy(streamed.translations)))
+                digest=digest(streamed.rotations, streamed.translations))
 
         # (e) config[3]'s orbit, every BA sharded.
         if spec["orbit_frames"]:
@@ -1811,8 +1813,7 @@ def _shard_rank(rank, workdir: str) -> None:
             rec["orbit"] = dict(
                 ate=port.evaluate_ate(orbit, seq.rotations, seq.translations, device=dev),
                 bas=list(bas), seconds=seconds, landmarks=int(orbit.landmark_valid.sum()),
-                digest=_digest(torch, torch.from_numpy(orbit.rotations),
-                               torch.from_numpy(orbit.translations)))
+                digest=digest(orbit.rotations, orbit.translations))
 
         if on_card:
             # Memory this process ever allocated on each card: nothing but
@@ -1825,6 +1826,11 @@ def _shard_rank(rank, workdir: str) -> None:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
+
+
+def _shard_torchrun_rank(workdir: str) -> None:
+    """One rank of phase 20, started by ``torchrun`` (``torchrun_ranks``)."""
+    _shard_rank(None, workdir)
 
 
 def _write_spec(workdir: str, spec: dict) -> None:
@@ -1874,7 +1880,7 @@ def _share_references(torch, port, dev, images, share: int, blurs) -> dict:
                                        for t in _described_fields(parts[-1]).values()))
         fields = {name: torch.cat([_described_fields(p)[name] for p in parts])
                   for name in _described_fields(parts[0])}
-        ref["digests"][blur] = {name: _digest(torch, t) for name, t in fields.items()}
+        ref["digests"][blur] = {name: digest(t) for name, t in fields.items()}
         ref["share_rise"][blur], ref["share_bytes"][blur] = rise, n_bytes
         if blur == "fused":
             ref["first_share"], ref["fused"] = parts[0], fields
@@ -2105,29 +2111,6 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
     return tuple(total), octave_err, sample_err, blur_err
 
 
-def _run_ranks(cmd, cwd, log_path, timeout) -> int:
-    """Run ``cmd`` in a session of its own, its output into ``log_path``;
-    past ``timeout`` seconds kill the whole session (the launcher and every
-    rank). Returns the exit code."""
-    import os
-    import signal
-
-    with open(log_path, "w") as log:
-        env = dict(os.environ, OMP_NUM_THREADS="2")
-        proc = subprocess.Popen(cmd, cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
-                                start_new_session=True, env=env)
-        try:
-            return proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            return 124
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-
-
 def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH, HEIGHT),
                      ba_sizes=(SHARD_BA, BA_LARGE), slam_frames=SLAM_FRAMES,
                      orbit_frames=ORBIT_FRAMES, keyframes=MULTICARD_KEYFRAMES,
@@ -2192,7 +2175,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
         return m.index, m.distance, m.valid
 
     kd, kv = fused["descriptor"][1:1 + keyframes], fused["valid"][1:1 + keyframes]
-    ref["match_digest"] = _digest(torch, *torch.func.vmap(one)(kd, kv))
+    ref["match_digest"] = digest(*torch.func.vmap(one)(kd, kv))
     ref["match_ms"] = _host_ms(torch, lambda: torch.func.vmap(one)(kd, kv), repeats, dev)
     n_slots = q.shape[0]
     del fused, q, qv, kd, kv
@@ -2255,23 +2238,13 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
                 width=width, blurs=["fused", "cuda"], repeats=repeats, keyframes=keyframes,
                 ba=[[n, *s] for n, s in zip(("dense", "large"), ba_sizes)],
                 slam_frames=slam_frames, orbit_frames=orbit_frames)
-    _write_spec(work, spec)
     if on_card:
         torch.cuda.empty_cache()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(world), "--no-python", sys.executable, "-c",
-           f"import chip_smoke; chip_smoke._shard_rank(None, {work!r})"]
-    log = os.path.join(work, "ranks.log")
     t0 = time.perf_counter()
-    rc = _run_ranks(cmd, root, log, timeout)
-    ranks_seconds = time.perf_counter() - t0
-    if rc != 0:
-        with open(log) as f:
-            print(f.read()[-8000:], flush=True)
-    _require(rc == 0, f"the {world} ranks exited {rc} (their log above)")
-    _say(f"multicard: {world} ranks by torchrun ran in {ranks_seconds:.1f} s")
-    total, octave_err, sample_err, blur_err = _shard_bars(
-        torch, _read_ranks(work, world), spec, ref, smi, "multicard")
+    ranks, _ = torchrun_ranks("chip_smoke:_shard_torchrun_rank", spec, world, timeout)
+    _say(f"multicard: {world} ranks by torchrun ran in {time.perf_counter() - t0:.1f} s")
+    total, octave_err, sample_err, blur_err = _shard_bars(torch, ranks, spec, ref, smi,
+                                                          "multicard")
     total = list(total)
 
     # (f) the JAX package's dry run, ported.
@@ -3165,7 +3138,7 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint, synthetic
 
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
-    digest = _tree_digest(fixture)
+    fixture_digest = _tree_digest(fixture)
     with open(os.path.join(fixture, "fixture.json")) as f:
         record = json.load(f)
 
@@ -3251,7 +3224,7 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "orbax", "tensorstore", "zstandard"))
     _require(not loaded, f"orbax: {loaded} loaded in this process")
-    _require(_tree_digest(fixture) == digest, "orbax: the committed fixture changed")
+    _require(_tree_digest(fixture) == fixture_digest, "orbax: the committed fixture changed")
     return launches
 
 
@@ -3648,6 +3621,62 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
     _say(f"benchmarks: phase 22 launched {launches} and took "
          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
     return tuple(launches[k] for k in (k1, k2, k3)), outputs
+
+
+# Phase 23: scatter_probe also at 16x the script's observations and landmarks
+# (O 409,600, L 65,536, C unchanged): at the script's size every row is a few
+# microseconds, the size of a launch.
+SCATTER_SCALE = 16
+SORTED_ABS_ERR = 1e-4  # the sorted route against index_add_: float32 sums of <= 16 N(0, 1) rows
+
+
+def _phase_scaling(torch, smi, dev, scatter_scales=(1, SCATTER_SCALE), scaling=None):
+    """Phase 23: the last three measuring scripts' counterparts on one
+    card. (a) ``benchmarks.scatter_probe`` at the script's size and at each
+    of ``scatter_scales`` times its O and L; (b) ``benchmarks.scaling_bench
+    --devices 1`` through its ``torchrun`` route on one NCCL rank
+    (``scaling``: ``run`` arguments that cut it for a CPU rehearsal); (c)
+    the line naming the four-card tool. Every number finite; the sorted
+    route's reruns bit-equal and within ``SORTED_ABS_ERR`` of
+    ``index_add_``'s sums; the module's own bars (ranks, worlds, BA against
+    ``bundle_adjust``, K1 and K2 launched on the card). Returns the (K1,
+    K2, K3) launches of (b)'s ranks."""
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
+        scaling_bench,
+        scatter_probe,
+    )
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for scale in scatter_scales:
+        o, l = scatter_probe.O * scale, scatter_probe.L * scale
+        out = scatter_probe.run(o=o, l=l, device=str(dev))
+        bad = _finite_numbers(out)
+        _require(not bad, f"scaling (a): scatter_probe at {scale}x has non-finite readings {bad}")
+        row = out["A_sorted_segment_sum_12w"]
+        scatter = out["A_segment_sum_12w"]
+        _say(f"scaling (a): scatter_probe, O {o}, L {l}, C {scatter_probe.C}: index_add_ "
+             f"{scatter['ms']:.4f} ms (reruns {scatter['rerun_max_diff']} apart), sorted "
+             f"{row['ms']:.4f} ms ({row['ms_tables_prebuilt']:.4f} with the tables prebuilt), "
+             f"pair scatter {out['A_pair_scatter_18w']['ms']:.4f}, one-hot "
+             f"{out['C_w_onehot_18w']['ms']:.4f}; {json.dumps(out)} [{smi}]")
+        _require(row["rerun_max_diff"] == 0.0, "scaling (a): the sorted route differs on a rerun")
+        _require(row["abs_err_vs_A"] <= SORTED_ABS_ERR,
+                 f"scaling (a): the sorted route parts from index_add_ by {row['abs_err_vs_A']}")
+    out = scaling_bench.run(devices=1, device=str(dev), **(scaling or {}))
+    bad = _finite_numbers(out)
+    _require(not bad, f"scaling (b): scaling_bench has non-finite readings {bad}")
+    launches = [sum(leg[k] for leg in out["launches"].values())
+                for k in ("fused_octave", "window_sample_pair", "blur_fused")]
+    _say(f"scaling (b): scaling_bench --devices 1, one rank by torchrun: {json.dumps(out)} "
+         f"[{smi}]")
+    _say("scaling (c): scaling_bench --devices 4 (--batch-per-device 2 and 64) and "
+         "multihost_bench --nproc 2 need four cards: tools/torch_multicard_phase.py runs them "
+         "on four, after phase 20")
+    _say(f"scaling: phase 23 took {time.perf_counter() - t_phase:.1f} s; its ranks launched "
+         f"K1/K2/K3 {launches} [{smi}]")
+    return tuple(launches)
 
 
 def main() -> int:
@@ -4280,6 +4309,7 @@ def main() -> int:
              "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
     probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work, sample_work)
     bench_launches, _ = _phase_benchmarks(torch, smi, device, reach["ceilings"])
+    scaling_launches = _phase_scaling(torch, smi, device)
 
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
@@ -4293,7 +4323,7 @@ def main() -> int:
                 "launches": describe_launches["fused_octave"] + slam_launches[0]
                 + stream_launches[0] + surface_launches[0] + shard_launches[0]
                 + blur_path_launches[0] + orbax_launches[0] + multi_launches[0]
-                + bench_launches[0],
+                + bench_launches[0] + scaling_launches[0],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -4311,7 +4341,7 @@ def main() -> int:
                 "launches": describe_launches["window_sample_pair"] + slam_launches[1]
                 + stream_launches[1] + surface_launches[1] + shard_launches[1]
                 + blur_path_launches[1] + orbax_launches[1] + multi_launches[1]
-                + bench_launches[1],
+                + bench_launches[1] + scaling_launches[1],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -4328,7 +4358,8 @@ def main() -> int:
                 "replaces": PALLAS + "blur.py:98",
                 "launches": blur_launches + slam_launches[2] + stream_launches[2]
                 + surface_launches[2] + shard_launches[2] + blur_path_launches[2]
-                + orbax_launches[2] + multi_launches[2] + bench_launches[2],
+                + orbax_launches[2] + multi_launches[2] + bench_launches[2]
+                + scaling_launches[2],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,

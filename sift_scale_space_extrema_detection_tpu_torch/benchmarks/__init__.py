@@ -1,7 +1,8 @@
 """The port's measuring entry points, named after the JAX package's scripts:
-the card's probes (``bw_probe``, ``tap_probe``) and the benchmarks
-(``bench``, ``frontend_bench``, ``ba_bench``, ``slam_bench``,
-``descriptor_bench``), with the helpers they share.
+the card's probes (``bw_probe``, ``tap_probe``, ``scatter_probe``), the
+benchmarks (``bench``, ``frontend_bench``, ``ba_bench``, ``slam_bench``,
+``descriptor_bench``) and the scaling runs across ranks (``scaling_bench``,
+``multihost_bench``), with the helpers they share.
 
 Each runs as ``python -m sift_scale_space_extrema_detection_tpu_torch.benchmarks.<name>``,
 on the card unless ``--device cpu`` is given; without a card it exits with a
@@ -13,14 +14,27 @@ ends in ``torch.cuda.synchronize()``, after a warm-up pass (:func:`host_ms`,
 :func:`median_ms`); a stage with a synchronise between stages; peak memory
 is ``max_memory_allocated`` after ``reset_peak_memory_stats``
 (:func:`peak_gib`).
+
+Runs across ranks (:func:`torchrun_ranks`): each world is started by
+``python -m torch.distributed.run --standalone`` in a session of its own,
+one rank a card, and each rank writes a JSON record; rank 0's host clock
+times the work from a synchronise plus a barrier to the next
+(:func:`rank_clock`).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import signal
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 
@@ -155,3 +169,76 @@ def require_launches(device: torch.device, launches: dict, kernels, what: str) -
     missing = [k for k in kernels if not launches.get(k)]
     if missing:
         raise RuntimeError(f"{what}: launched {missing} no time on the card ({launches})")
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of tensors' (or arrays') dtypes, shapes and bytes, on the
+    host: equal digests are the same bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        a = (t.detach().cpu().contiguous().numpy() if isinstance(t, torch.Tensor)
+             else np.ascontiguousarray(t))
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def run_ranks(cmd, cwd, log_path, timeout, env=None) -> int:
+    """Run ``cmd`` in a session of its own (two torch threads a process,
+    ``env`` added to the environment), its output into ``log_path``; past
+    ``timeout`` seconds kill the whole session (the launcher and every rank)
+    and return 124. Returns the exit code."""
+    with open(log_path, "w") as log:
+        env = dict(os.environ, OMP_NUM_THREADS="2", **(env or {}))
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True, env=env)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            return 124
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def torchrun_ranks(target: str, spec: dict, world: int, timeout: float, env=None):
+    """``world`` ranks of ``target`` (``"module:function"``, called with a
+    work directory that holds ``spec.json``), started by ``python -m
+    torch.distributed.run --standalone --nproc_per_node <world>`` from the
+    repository root through :func:`run_ranks`. Each rank writes
+    ``rank<r>.json``. Returns ``(the records in rank order, the ranks' log)``;
+    raises ``RuntimeError`` with the log's end where the ranks fail or
+    outlive ``timeout`` seconds."""
+    module, function = target.split(":")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with tempfile.TemporaryDirectory(prefix="sift_ranks_") as work:
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(world), "--no-python", sys.executable, "-c",
+               f"from {module} import {function}; {function}({work!r})"]
+        log_path = os.path.join(work, "ranks.log")
+        rc = run_ranks(cmd, root, log_path, timeout, env)
+        with open(log_path) as f:
+            log = f.read()
+        if rc != 0:
+            raise RuntimeError(f"{world} ranks of {target} exited {rc}:\n{log[-8000:]}")
+        records = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                records.append(json.load(f))
+    return records, log
+
+
+def rank_clock(dev: torch.device) -> float:
+    """The host clock once this rank's device work is done and every rank of
+    the default group has reached this point (a synchronise, then a
+    barrier)."""
+    import torch.distributed as dist
+
+    sync(dev)
+    dist.barrier(**({"device_ids": [dev.index]} if dev.type == "cuda" else {}))
+    return time.perf_counter()

@@ -34,6 +34,9 @@ from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
     bw_probe,
     descriptor_bench,
     frontend_bench,
+    multihost_bench,
+    scaling_bench,
+    scatter_probe,
     slam_bench,
     tap_probe,
 )
@@ -355,7 +358,8 @@ def test_tap_probe_on_the_cpu_prints_the_original_keys():
 
 
 @pytest.mark.parametrize("main", [bw_probe.main, tap_probe.main, bench.main, frontend_bench.main,
-                                  ba_bench.main, slam_bench.main, descriptor_bench.main])
+                                  ba_bench.main, slam_bench.main, descriptor_bench.main,
+                                  scatter_probe.main, scaling_bench.main, multihost_bench.main])
 def test_probes_exit_without_a_card_unless_asked_for_the_cpu(main, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
@@ -366,12 +370,14 @@ def test_probes_exit_without_a_card_unless_asked_for_the_cpu(main, monkeypatch, 
 def test_entry_points_load_no_jax_in_a_fresh_interpreter():
     """Every measuring entry point of the port runs in one fresh interpreter
     at a toy size (the probes through ``main``, the benchmarks through
-    ``run``: one warp, 8 frames of 160×120, a BA of 6 × 120 × 40), and none
-    loads jax or the JAX package."""
+    ``run``: one warp, 8 frames of 160×120, a BA of 6 × 120 × 40, a scatter
+    probe of 2,048 × 256 × 10; the scaling runs, which start ranks of their
+    own, are imported), and none loads jax or the JAX package."""
     code = (
         "import sys\n"
         "from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (\n"
-        "    ba_bench, bench, bw_probe, descriptor_bench, frontend_bench, slam_bench, tap_probe)\n"
+        "    ba_bench, bench, bw_probe, descriptor_bench, frontend_bench, multihost_bench,\n"
+        "    scaling_bench, scatter_probe, slam_bench, tap_probe)\n"
         "bw_probe.main(['--gb', '0.002', '--iters', '1', '--device', 'cpu'])\n"
         "tap_probe.main(['--rows', '2', '--width', '4', '--iters', '1', '--device', 'cpu'])\n"
         "cpu = dict(device='cpu')\n"
@@ -380,8 +386,10 @@ def test_entry_points_load_no_jax_in_a_fresh_interpreter():
         "                           stages=True, describe=True, **cpu),\n"
         "        ba_bench.run(cams=6, pts=120, obs_per_cam=40, iters=2, **cpu),\n"
         "        slam_bench.run(frames=8, size='160x120', render_cache='', **cpu),\n"
-        "        descriptor_bench.run(warps=[(20.0, 1.0)], **cpu)]\n"
-        "assert [out['device'] for out in outs] == ['cpu'] * 5, outs\n"
+        "        descriptor_bench.run(warps=[(20.0, 1.0)], **cpu),\n"
+        "        scatter_probe.run(o=2048, l=256, c=10, iters=1, **cpu)]\n"
+        "assert [out['device'] for out in outs] == ['cpu'] * 6, outs\n"
+        "assert callable(scaling_bench.run) and callable(multihost_bench.run)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'sift_scale_space_extrema_detection_tpu']\n"
         "assert not bad, bad\n"

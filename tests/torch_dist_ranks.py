@@ -310,6 +310,21 @@ def visual_slam(inp, mesh):
     return out
 
 
+@scenario
+def scaling_legs(inp, mesh):
+    """``benchmarks/scaling_bench.py``'s three legs at the sizes of
+    ``inp["spec"]`` (JSON), as one of its ranks runs them; every rank's
+    record, gathered (the same on every rank)."""
+    import torch.distributed as dist
+
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import scaling_bench
+
+    rec = scaling_bench.rank_legs(json.loads(str(inp["spec"])), mesh)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    return dict(records=np.asarray(json.dumps(every)))
+
+
 def _digest(out: dict) -> str:
     h = hashlib.sha256()
     for key in sorted(out):
