@@ -22,6 +22,12 @@ Selection, Newton refinement and the describe stages' histogram math are
 tensor code over the whole batch, and the describe stages sample through
 the window-sampling kernel (``ops/kernels/describe.py``).
 
+Each layer's work runs in a span (``utils/profile.py``, on only inside
+``tracing()``): ``sift.frontend`` around a batched entry, ``sift.pyramid``,
+``sift.select`` and ``sift.refine`` around the functions that do each
+layer's work, whichever entry calls them, and ``sift.describe`` in
+``ops/descriptor.py``.
+
 The entry points (:func:`detect`, :func:`detect_batched`,
 :func:`detect_and_describe`, :func:`detect_and_describe_batched`,
 :func:`build_pyramid_fused`, :func:`build_scale_space`) run on the card:
@@ -51,6 +57,7 @@ from ..ops.kernels.blur import blur_fused
 from ..ops.kernels.octave import fused_octave
 from ..ops.refine import refine_keypoints, refine_keypoints_multi
 from ..ops.resize import downsample2x_nn, upsample2x_nn
+from ..utils.profile import span
 
 # The scale space blur by blur, by name. ``"cuda"`` is the stand-alone blur
 # kernel (for a CPU tensor it runs the tap loop), and ``"pallas"``, the JAX
@@ -190,27 +197,32 @@ def _select_candidates(dogs, cfg: SiftConfig, masks) -> tuple[list[Extrema], lis
     if masks is None:
         masks = [None] * len(dogs)
     extrema, selected = [], []
-    for octave, (d, m) in enumerate(zip(dogs, masks)):
-        capacity = cfg.refine_capacity(octave)
-        if m is None:
-            e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
-            sel = compact_extrema(e, capacity)
-        else:
-            e = sel = select_refine_candidates(m, d, cfg, capacity)
-        extrema.append(e)
-        selected.append(sel)
+    with span("select"):
+        for octave, (d, m) in enumerate(zip(dogs, masks)):
+            capacity = cfg.refine_capacity(octave)
+            if m is None:
+                e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
+                sel = compact_extrema(e, capacity)
+            else:
+                e = sel = select_refine_candidates(m, d, cfg, capacity)
+            extrema.append(e)
+            selected.append(sel)
     return extrema, selected
 
 
 def _refine_per_octave(dogs, selected, cfg: SiftConfig) -> list[Keypoints]:
-    return [refine_keypoints(d, sel, o, cfg) for o, (d, sel) in enumerate(zip(dogs, selected))]
+    with span("refine"):
+        return [
+            refine_keypoints(d, sel, o, cfg) for o, (d, sel) in enumerate(zip(dogs, selected))
+        ]
 
 
 def _refine_pooled(dogs, selected, cfg: SiftConfig, first: int = 0) -> list[Keypoints]:
     """:func:`~..ops.refine.refine_keypoints_multi` over the octaves from
     ``first`` on, split back into one ``Keypoints`` per octave."""
-    pooled = refine_keypoints_multi(dogs, selected, cfg, octave_offset=first)
-    return split_keypoints(pooled, [sel.capacity for sel in selected])
+    with span("refine"):
+        pooled = refine_keypoints_multi(dogs, selected, cfg, octave_offset=first)
+        return split_keypoints(pooled, [sel.capacity for sel in selected])
 
 
 def detect_octaves(
@@ -264,13 +276,14 @@ def _pyramid(images: torch.Tensor, cfg: SiftConfig, blur: str, emit_scales: bool
     """``(dogs, masks, stacks)`` of unit-range images on their device:
     the fused octave kernel's (``stacks`` only with ``emit_scales``), or
     the scale space blur by blur with no masks."""
-    if blur == "fused":
-        dogs, masks, *stacks = build_pyramid_fused(
-            images, cfg, emit_scales=emit_scales, device=images.device
-        )
-        return dogs, masks, stacks[0] if stacks else None
-    stacks = build_scale_space(images, cfg, blur, device=images.device)
-    return build_dog(stacks), None, stacks
+    with span("pyramid"):
+        if blur == "fused":
+            dogs, masks, *stacks = build_pyramid_fused(
+                images, cfg, emit_scales=emit_scales, device=images.device
+            )
+            return dogs, masks, stacks[0] if stacks else None
+        stacks = build_scale_space(images, cfg, blur, device=images.device)
+        return build_dog(stacks), None, stacks
 
 
 def detect_batched(
@@ -283,9 +296,10 @@ def detect_batched(
     (see the module; :func:`check_blur`). ``device``: see the module.
     """
     check_blur(blur, images.dtype)
-    images = _as_unit_float(on_device(images, device))
-    dogs, masks, _ = _pyramid(images, cfg, blur, emit_scales=False)
-    return detect_from_dog(dogs, cfg, masks)
+    with span("frontend"):
+        images = _as_unit_float(on_device(images, device))
+        dogs, masks, _ = _pyramid(images, cfg, blur, emit_scales=False)
+        return detect_from_dog(dogs, cfg, masks)
 
 
 def detect(
@@ -311,23 +325,24 @@ def detect_and_describe_batched(
     ``blur`` and ``device``: see :func:`detect_batched`.
     """
     check_blur(blur, images.dtype)
-    images = _as_unit_float(on_device(images, device))
-    dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
-    _, selected = _select_candidates(dogs, cfg, masks)
-    keypoints = _refine_per_octave(dogs, selected, cfg)
-    if stacks[0].dtype == torch.float64:
-        # The describe stages are float32 (the sampling kernel's contract):
-        # a float64 scale space is described from its float32 rounding.
-        stacks = [s.to(torch.float32) for s in stacks]
-        keypoints = [_float32(kp) for kp in keypoints]
-    if cfg.compact_describe:
-        return describe_compact(stacks, keypoints, cfg)
-    return concat_described(
-        [
-            describe_octave(stack, kp, octave, cfg)
-            for octave, (stack, kp) in enumerate(zip(stacks, keypoints))
-        ]
-    )
+    with span("frontend"):
+        images = _as_unit_float(on_device(images, device))
+        dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
+        _, selected = _select_candidates(dogs, cfg, masks)
+        keypoints = _refine_per_octave(dogs, selected, cfg)
+        if stacks[0].dtype == torch.float64:
+            # The describe stages are float32 (the sampling kernel's contract):
+            # a float64 scale space is described from its float32 rounding.
+            stacks = [s.to(torch.float32) for s in stacks]
+            keypoints = [_float32(kp) for kp in keypoints]
+        if cfg.compact_describe:
+            return describe_compact(stacks, keypoints, cfg)
+        return concat_described(
+            [
+                describe_octave(stack, kp, octave, cfg)
+                for octave, (stack, kp) in enumerate(zip(stacks, keypoints))
+            ]
+        )
 
 
 def detect_and_describe(

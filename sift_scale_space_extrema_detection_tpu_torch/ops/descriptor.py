@@ -39,6 +39,7 @@ import torch
 from ..config import SiftConfig
 from ..core.device import require_full_float32_matmul
 from ..core.types import Keypoints
+from ..utils.profile import span
 from .extrema import first_k_set_indices
 from .kernels.describe import window_sample_pair
 
@@ -433,13 +434,18 @@ def describe_octave(
     cfg: SiftConfig,
     sample_fn=window_sample_pair,
 ) -> DescribedKeypoints:
-    """Orientation assignment + descriptors for one octave of a batch."""
-    theta, ori_valid = assign_orientations(
-        octave_stack, keypoints, octave, cfg, sample_fn
-    )
-    return compute_descriptors(
-        octave_stack, keypoints, theta, ori_valid, octave, cfg, sample_fn
-    )
+    """Orientation assignment + descriptors for one octave of a batch, in
+    the spans ``sift.describe`` and, nested, ``sift.describe.orientation``
+    and ``sift.describe.descriptor``."""
+    with span("describe"):
+        with span("describe.orientation"):
+            theta, ori_valid = assign_orientations(
+                octave_stack, keypoints, octave, cfg, sample_fn
+            )
+        with span("describe.descriptor"):
+            return compute_descriptors(
+                octave_stack, keypoints, theta, ori_valid, octave, cfg, sample_fn
+            )
 
 
 def describe_compact(
@@ -467,8 +473,15 @@ def describe_compact(
     orientation stage is skipped and θ = 0 for every keypoint. Returns
     fields ``(B, pairs)`` and descriptors ``(B, pairs, 128)``.
     ``sample_fn`` is :func:`window_sample_pair` or a function with its
-    contract, such as its plain version.
+    contract, such as its plain version. The pass runs in the span
+    ``sift.describe``, its two sampling stages in ``sift.describe.orientation``
+    and ``sift.describe.descriptor``.
     """
+    with span("describe"):
+        return _describe_compact(stacks, keypoints_list, cfg, sample_fn)
+
+
+def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn):
     require_full_float32_matmul(stacks[0].device)
     n_ori = cfg.max_orientations_per_keypoint
 
@@ -505,7 +518,8 @@ def describe_compact(
         theta_pairs = torch.zeros_like(fields["abs_y"])
         pair_valid = kvalid
     else:
-        theta, ori_valid = _orientation_stage(slots_of(fields, kvalid), cfg, sample_fn)
+        with span("describe.orientation"):
+            theta, ori_valid = _orientation_stage(slots_of(fields, kvalid), cfg, sample_fn)
         b, cap = kvalid.shape
         theta = theta.reshape(b, cap * n_ori)
         ori_valid = (ori_valid.reshape(b, cap, n_ori) & kvalid[:, :, None]).reshape(
@@ -517,9 +531,10 @@ def describe_compact(
         pair_valid = pok & ori_valid.gather(-1, pidx)
         fields = {k: v.gather(-1, slot) for k, v in fields.items()}
 
-    desc = _descriptor_stage(
-        slots_of(fields, pair_valid), theta_pairs.reshape(-1), cfg, sample_fn
-    )
+    with span("describe.descriptor"):
+        desc = _descriptor_stage(
+            slots_of(fields, pair_valid), theta_pairs.reshape(-1), cfg, sample_fn
+        )
     return DescribedKeypoints(
         octave=fields["octave"],
         scale_level=fields["scale_level"],

@@ -10,6 +10,11 @@ what makes the kernels agree bit for bit with their plain PyTorch versions.
 
 There is no fallback: without ``nvcc`` or on a failed build,
 :func:`load_kernels` raises.
+
+:data:`LOAD_TIMES` says, once the process has loaded the kernels, what
+that took on the host clock: whether ``nvcc`` ran, the seconds of the
+build step (hashing the sources, and ``nvcc`` when it ran) and of loading
+the library.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -35,6 +41,9 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+
+# Filled by the process's first load_kernels(): nvcc_ran, build_s, load_s.
+LOAD_TIMES: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,15 +96,18 @@ def _find_nvcc() -> str:
     )
 
 
-def build_library(sources, stem: str, headers) -> Path:
+def build_library(sources, stem: str, headers, built: dict | None = None) -> Path:
     """Build ``sources`` into ``build/lib<stem>_<hash>.so`` once per version
-    of the sources and the ``headers`` they include; its path."""
+    of the sources and the ``headers`` they include; its path. ``built``,
+    when given, gets ``nvcc_ran``: whether this call ran ``nvcc``."""
     nvcc = _find_nvcc()
     digest = hashlib.sha256(
         b"".join(Path(p).read_bytes() for p in [*sources, *headers])
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{stem}_{digest}.so"
+    if built is not None:
+        built["nvcc_ran"] = not lib_path.exists()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f"{lib_path.stem}.tmp{os.getpid()}.so"
@@ -115,15 +127,21 @@ def build_library(sources, stem: str, headers) -> Path:
 
 @functools.cache
 def load_kernels() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
+    """Build (once per source version) and load the kernel library;
+    the times in :data:`LOAD_TIMES`."""
+    t0 = time.perf_counter()
+    built: dict = {}
     lib_path = build_library(
-        sorted(CSRC_DIR.glob("*.cu")), "sift_kernels", sorted(CSRC_DIR.glob("*.cuh"))
+        sorted(CSRC_DIR.glob("*.cu")), "sift_kernels", sorted(CSRC_DIR.glob("*.cuh")), built
     )
+    t1 = time.perf_counter()
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
+    LOAD_TIMES.update(nvcc_ran=built["nvcc_ran"], build_s=t1 - t0,
+                      load_s=time.perf_counter() - t1)
     return lib
 
 

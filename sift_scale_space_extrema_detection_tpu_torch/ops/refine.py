@@ -24,6 +24,11 @@ reference quirk (background.js:565 reads ``extrema.value``) kept for parity.
 Every operation is a separate tensor op in the dtype of the DoG (float32
 on the fused path, float64 on the oracle leg), so each product and sum is
 rounded on its own, as in the JAX package and in the reference.
+
+Each Newton step runs in the span ``sift.refine.step``; with counters on
+(``utils/profile.py``), step ``i`` of octave ``k`` adds the slots it ran
+over to ``refine.slots_stepped.o<k>.s<i>`` and the slots still running to
+``refine.slots_live.o<k>.s<i>`` (``o<a>-<b>`` for a pool of octaves).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..core.types import (
     Keypoints,
     exact_scalar,
 )
+from ..utils.profile import count, counting, span
 
 JS_EPSILON = 2.0**-52  # Number.EPSILON
 
@@ -229,22 +235,35 @@ def _first_active(active: torch.Tensor, shape, cap: int) -> torch.Tensor:
     return (active & (rank <= cap)).reshape(-1)
 
 
-def _iterate(dog_flat, base, d_scales, h, w, st, cfg, shape, pool_cap=None):
+def _iterate(dog_flat, base, d_scales, h, w, st, cfg, shape, octaves, pool_cap=None):
     """Newton iteration 1, then the compaction ladder, over a state of
-    ``shape = (B, n)`` slots. Before iteration 1 only the first
-    ``pool_cap`` valid slots of each image go on when ``pool_cap`` is given
-    and below ``n``; before each later iteration only the first
-    :func:`_ladder_caps` still-active slots the previous level admitted.
-    The rest keep REJECT_MAX_ITERATIONS: the outputs of the JAX package's
-    compactions, from one running count per level."""
+    ``shape = (B, n)`` slots of ``octaves`` (first, last). Before iteration
+    1 only the first ``pool_cap`` valid slots of each image go on when
+    ``pool_cap`` is given and below ``n``; before each later iteration only
+    the first :func:`_ladder_caps` still-active slots the previous level
+    admitted. The rest keep REJECT_MAX_ITERATIONS: the outputs of the JAX
+    package's compactions, from one running count per level. Each step
+    runs in a span and is counted (see the module)."""
+    counted = counting()
     live = torch.ones_like(st["run"])  # slots the ladder still admits
     if pool_cap is not None and pool_cap < shape[1]:
         live = st["run"] = _first_active(st["run"], shape, pool_cap)
-    st = _step(dog_flat, base, d_scales, h, w, st, cfg)
-    for cap in _ladder_caps(cfg, shape[1]):
-        live = st["run"] = _first_active(live & ~st["done"], shape, cap)
-        st = _step(dog_flat, base, d_scales, h, w, st, cfg)
+    for i, cap in enumerate([None, *_ladder_caps(cfg, shape[1])], 1):
+        if cap is not None:
+            live = st["run"] = _first_active(live & ~st["done"], shape, cap)
+        if counted:
+            _count_step(octaves, i, shape, st["run"])
+        with span("refine.step"):
+            st = _step(dog_flat, base, d_scales, h, w, st, cfg)
     return st
+
+
+def _count_step(octaves, step: int, shape, run) -> None:
+    """Step ``step``'s counters: the slots it runs over, the slots live."""
+    first, last = octaves
+    tag = f"o{first}" if first == last else f"o{first}-{last}"
+    count(f"refine.slots_stepped.{tag}.s{step}", shape[0] * shape[1])
+    count(f"refine.slots_live.{tag}.s{step}", run.sum())
 
 
 def _initial_state(extrema_list, dtype, delta, sigc) -> dict:
@@ -298,7 +317,7 @@ def refine_keypoints(
         torch.full_like(slot, exact_scalar(sigma_coeff, dog.dtype)),
     )
     base = image * (d_scales * h * w)
-    st = _iterate(dog.reshape(-1), base, d_scales, h, w, st, cfg, (b, n_slots))
+    st = _iterate(dog.reshape(-1), base, d_scales, h, w, st, cfg, (b, n_slots), (octave, octave))
     return _keypoints_from_state(st, octave, (b, n_slots))
 
 
@@ -354,8 +373,9 @@ def refine_keypoints_multi(
     pool_cap = min(n_slots, max(256, int(n_slots * cfg.refine_pool_compaction)))
     st = _initial_state(extrema_list, dtype, cat(deltas), cat(sigcs))
     dog_flat = torch.cat([d.reshape(-1) for d in dogs])
+    octaves = (octave_offset, octave_offset + len(dogs) - 1)
     st = _iterate(
-        dog_flat, cat(bases), d_scales, cat(hs), cat(ws), st, cfg, (b, n_slots), pool_cap
+        dog_flat, cat(bases), d_scales, cat(hs), cat(ws), st, cfg, (b, n_slots), octaves, pool_cap
     )
     return _keypoints_from_state(st, cat(octs), (b, n_slots))
 

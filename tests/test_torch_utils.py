@@ -2,7 +2,7 @@
 the JAX package's: checkpoints cross between the two packages bit for bit
 (the npz + JSON format, both directions), ``keypoint_stats`` reads the same
 counters from the same keypoints, and the mirrors of
-``tests/test_utils_cli.py``'s checkpoint, timer and debug tests."""
+``tests/test_utils_cli.py``'s checkpoint and debug tests."""
 
 import dataclasses
 import json
@@ -20,13 +20,8 @@ import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState
 from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint as pckpt
 from sift_scale_space_extrema_detection_tpu_torch.utils.debug import assert_finite, checked
-from sift_scale_space_extrema_detection_tpu_torch.utils.metrics import (
-    StageTimer,
-    device_sync,
-    keypoint_stats,
-    trace,
-)
-from sift_scale_space_extrema_detection_tpu_torch.utils.profile import StageProfile
+from sift_scale_space_extrema_detection_tpu_torch.utils.metrics import keypoint_stats
+from sift_scale_space_extrema_detection_tpu_torch.utils.profile import StageProfile, tracing
 
 torch.set_num_threads(2)
 
@@ -177,17 +172,6 @@ def test_keypoint_stats_match_the_reference(test_image, with_extrema):
         assert got["candidates_overflowed"] == 0
 
 
-def test_stage_timer():
-    timer = StageTimer()
-    with timer.stage("stage_a") as h:
-        h["result"] = torch.ones(8)
-    with timer.stage("stage_a", sync_tree={"x": torch.arange(3)}):
-        pass
-    assert timer.counts["stage_a"] == 2
-    assert "stage_a" in timer.report()
-    assert device_sync({"a": torch.ones(3), "b": [torch.arange(4)], "c": "text"}) == 9.0
-
-
 def test_stage_profile():
     prof = StageProfile()
     with prof.stage("pnp"):
@@ -204,10 +188,40 @@ def test_stage_profile():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "trace")) as log_dir:
-        torch.ones(4).sum()
-    with open(f"{log_dir}/trace.json") as f:
-        assert "traceEvents" in json.load(f)
+    """The operator's recipe: ``tracing()`` under ``torch.profiler``, the
+    trace exported, the program's ``sift.*`` ranges in it."""
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracing():
+            prof_stages = StageProfile()
+            with prof_stages.stage("pnp"):
+                torch.ones(4).sum()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "sift.slam.pnp" in names and "aten::sum" in names
+
+
+def test_stage_profile_stages_are_spans():
+    """A profiled ``StageProfile`` stage is the range ``sift.slam.<name>``
+    around its work, and no range at all outside ``tracing()``."""
+
+    def ranges(session: bool):
+        prof_stages = StageProfile()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with tracing(spans=session):
+                with prof_stages.stage("ba"):
+                    torch.ones(3).mul(2)
+        events = prof.profiler.kineto_results.events()
+        spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                 if e.name() == "sift.slam.ba"]
+        ops = [e.start_ns() for e in events if e.name() == "aten::mul"]
+        return spans, ops, prof_stages.calls["ba"]
+
+    spans, ops, calls = ranges(True)
+    assert len(spans) == 1 and len(ops) == 1 and calls == 1
+    assert spans[0][0] <= ops[0] <= spans[0][1]
+    assert ranges(False)[0] == []
 
 
 def test_checked_catches_nan():
