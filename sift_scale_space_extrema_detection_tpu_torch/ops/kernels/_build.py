@@ -49,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)  # host int array
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_FP = ctypes.POINTER(ctypes.c_float)  # host float array
 _SIGNATURES = {  # name: (argtypes, restype)
     # base, batch, h, w, upsample2x, taps, tap_offsets, radii, n_scales,
     # spo, contrast_thr, tile_h, tile_w, clamped, shared_bytes, stack (or
@@ -66,6 +67,12 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "sift_window_sample_pair": (
         [_PP, _IP, _IP, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
          _I, _P],
+        _I,
+    ),
+    # dogs, fields, dims, geometry, n_octaves, batch, depth, n_slots, caps,
+    # n_steps, limits, ints, floats, valid, live, stream
+    "sift_newton_ladder": (
+        [_PP, _PP, _IP, _FP, _I, _I, _I, _I, _IP, _I, _FP, _P, _P, _P, _P, _P],
         _I,
     ),
     # out, n, value, stream

@@ -25,14 +25,24 @@ Every operation is a separate tensor op in the dtype of the DoG (float32
 on the fused path, float64 on the oracle leg), so each product and sum is
 rounded on its own, as in the JAX package and in the reference.
 
-Each Newton step runs in the span ``sift.refine.step``; with counters on
-(``utils/profile.py``), step ``i`` of octave ``k`` adds the slots it ran
+Two routes, chosen by the DoGs' dtype and device alone (:func:`takes_kernel`):
+float32 DoGs on a CUDA device go to the hand-written kernel
+(``kernels/refine.py::newton_ladder``, ``csrc/refine.cu``), which runs the
+whole ladder in one launch and equals this tensor code bit for bit; every
+other input (the CPU, the float64 oracle leg) runs the tensor code, its
+plain version (:func:`newton_ladder_reference`). With counters on
+(``utils/profile.py``) a call adds 1 to ``refine.route.kernel`` or
+``refine.route.plain``.
+
+On the plain route each Newton step runs in the span ``sift.refine.step``.
+On both, with counters on, step ``i`` of octave ``k`` adds the slots it ran
 over to ``refine.slots_stepped.o<k>.s<i>`` and the slots still running to
 ``refine.slots_live.o<k>.s<i>`` (``o<a>-<b>`` for a pool of octaves).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -51,6 +61,7 @@ from ..core.types import (
     exact_scalar,
 )
 from ..utils.profile import count, counting, span
+from .kernels import refine as refine_kernel
 
 JS_EPSILON = 2.0**-52  # Number.EPSILON
 
@@ -92,6 +103,24 @@ def _ladder_caps(cfg: SiftConfig, n_slots: int) -> list[int]:
         max(64, int(n_slots * schedule[min(i, len(schedule) - 1)]))
         for i in range(cfg.max_refine_iterations - 1)
     ]
+
+
+def _kernel_caps(cfg: SiftConfig, n_slots: int, pool_cap: int | None) -> list[int]:
+    """The caps the kernel is handed, one a Newton step: ``pool_cap`` (or
+    ``n_slots``, which caps nothing) before step 1, then the ladder's."""
+    return [n_slots if pool_cap is None else pool_cap, *_ladder_caps(cfg, n_slots)]
+
+
+def _pool_cap(cfg: SiftConfig, n_slots: int) -> int:
+    """Valid slots of an image that a pool of ``n_slots`` slots lets into
+    Newton iteration 1 (the JAX package's pool compaction)."""
+    return min(n_slots, max(256, int(n_slots * cfg.refine_pool_compaction)))
+
+
+def takes_kernel(dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether DoGs of ``dtype`` on ``device`` are refined by the kernel:
+    float32 on a CUDA device. Else the tensor code refines them."""
+    return dtype == torch.float32 and device.type == "cuda"
 
 
 def _clip_interior(x: torch.Tensor, extent) -> torch.Tensor:
@@ -252,18 +281,18 @@ def _iterate(dog_flat, base, d_scales, h, w, st, cfg, shape, octaves, pool_cap=N
         if cap is not None:
             live = st["run"] = _first_active(live & ~st["done"], shape, cap)
         if counted:
-            _count_step(octaves, i, shape, st["run"])
+            _count_step(octaves, i, shape, st["run"].sum())
         with span("refine.step"):
             st = _step(dog_flat, base, d_scales, h, w, st, cfg)
     return st
 
 
-def _count_step(octaves, step: int, shape, run) -> None:
+def _count_step(octaves, step: int, shape, live) -> None:
     """Step ``step``'s counters: the slots it runs over, the slots live."""
     first, last = octaves
     tag = f"o{first}" if first == last else f"o{first}-{last}"
     count(f"refine.slots_stepped.{tag}.s{step}", shape[0] * shape[1])
-    count(f"refine.slots_live.{tag}.s{step}", run.sum())
+    count(f"refine.slots_live.{tag}.s{step}", live)
 
 
 def _initial_state(extrema_list, dtype, delta, sigc) -> dict:
@@ -303,22 +332,10 @@ def refine_keypoints(
     every slot; before each later iteration only the first
     :func:`_ladder_caps` still-active slots of each image go on, the rest
     keeping REJECT_MAX_ITERATIONS — the same outputs as the JAX package's
-    compaction ladder, from one running count per iteration.
+    compaction ladder, from one running count per iteration. Routed by the
+    DoG's dtype and device (see the module).
     """
-    b, d_scales, h, w = dog.shape
-    n_slots = extrema.y.shape[-1]
-    delta, sigma_coeff = _octave_geometry(octave, cfg)
-    image = torch.arange(b, device=dog.device).repeat_interleave(n_slots)
-    slot = torch.zeros(b * n_slots, dtype=dog.dtype, device=dog.device)
-    st = _initial_state(
-        [extrema],
-        dog.dtype,
-        torch.full_like(slot, exact_scalar(delta, dog.dtype)),
-        torch.full_like(slot, exact_scalar(sigma_coeff, dog.dtype)),
-    )
-    base = image * (d_scales * h * w)
-    st = _iterate(dog.reshape(-1), base, d_scales, h, w, st, cfg, (b, n_slots), (octave, octave))
-    return _keypoints_from_state(st, octave, (b, n_slots))
+    return _refine([dog], [extrema], octave, cfg)
 
 
 def refine_keypoints_multi(
@@ -336,14 +353,87 @@ def refine_keypoints_multi(
     are one state, octave after octave; every slot carries its octave's
     plane extent, offset into the concatenated flat DoG, ``delta`` and
     sigma constant. Before Newton iteration 1 the first
-    ``min(n, max(256, int(n · refine_pool_compaction)))`` valid slots of
-    each image go on (``n = Σ n_i``), and the ladder's caps are taken on
-    ``n``; the rest keep REJECT_MAX_ITERATIONS. Where nothing overflows,
-    the result is ``concat_keypoints`` of :func:`refine_keypoints` per
-    octave; keypoints ``(B, n)`` in that slot order.
+    :func:`_pool_cap` valid slots of each image go on (``n = Σ n_i``), and
+    the ladder's caps are taken on ``n``; the rest keep
+    REJECT_MAX_ITERATIONS. Where nothing overflows, the result is
+    ``concat_keypoints`` of :func:`refine_keypoints` per octave; keypoints
+    ``(B, n)`` in that slot order. Routed as :func:`refine_keypoints`.
     """
     if len({(d.dtype, d.shape[:2]) for d in dogs}) != 1:
         raise ValueError("refine_keypoints_multi: the DoGs differ in dtype, batch or depth")
+    n_slots = sum(e.y.shape[-1] for e in extrema_list)
+    return _refine(dogs, extrema_list, octave_offset, cfg, _pool_cap(cfg, n_slots))
+
+
+def _refine(dogs, extrema_list, first_octave: int, cfg: SiftConfig, pool_cap=None) -> Keypoints:
+    """Refinement of ``dogs`` (octaves from ``first_octave`` on) on the
+    route :func:`takes_kernel` picks, counted by route and by step. The
+    kernel gets the candidates' fields in its types, cast as
+    :func:`_initial_state` casts them for the tensor code."""
+    dtype = dogs[0].dtype
+    if not takes_kernel(dtype, dogs[0].device):
+        count("refine.route.plain", 1)
+        return newton_ladder_reference(dogs, extrema_list, first_octave, cfg, pool_cap)
+    count("refine.route.kernel", 1)
+    extrema_list = [
+        dataclasses.replace(
+            e, y=e.y.to(torch.int32), x=e.x.to(torch.int32),
+            scale_level=e.scale_level.to(torch.int32), value=e.value.to(dtype),
+            valid=e.valid.to(torch.bool),
+        )
+        for e in extrema_list
+    ]
+    n_slots = sum(e.y.shape[-1] for e in extrema_list)
+    keypoints, live = refine_kernel.newton_ladder(
+        [d.contiguous() for d in dogs], extrema_list, first_octave, cfg,
+        _kernel_caps(cfg, n_slots, pool_cap),
+        [_octave_geometry(first_octave + i, cfg) for i in range(len(dogs))],
+    )
+    if counting():
+        octaves = (first_octave, first_octave + len(dogs) - 1)
+        per_step = live.sum(0, dtype=torch.int64)
+        for i in range(live.shape[1]):
+            _count_step(octaves, i + 1, keypoints.valid.shape, per_step[i])
+    return keypoints
+
+
+def newton_ladder_reference(
+    dogs: list[torch.Tensor],
+    extrema_list: list[Extrema],
+    first_octave: int,
+    cfg: SiftConfig,
+    pool_cap: int | None = None,
+) -> Keypoints:
+    """The tensor code: the plain version of the kernel's
+    ``newton_ladder``, on any device and in float32 or float64. One octave
+    without ``pool_cap`` is :func:`refine_keypoints`'s state; else the
+    octaves are one pool, as in :func:`refine_keypoints_multi`, with
+    ``pool_cap`` (None: no cap) before iteration 1."""
+    if len(dogs) == 1 and pool_cap is None:
+        return _refine_octave(dogs[0], extrema_list[0], first_octave, cfg)
+    return _refine_pool(dogs, extrema_list, first_octave, cfg, pool_cap)
+
+
+def _refine_octave(dog, extrema, octave, cfg) -> Keypoints:
+    """The tensor code of one octave (:func:`refine_keypoints`)."""
+    b, d_scales, h, w = dog.shape
+    n_slots = extrema.y.shape[-1]
+    delta, sigma_coeff = _octave_geometry(octave, cfg)
+    image = torch.arange(b, device=dog.device).repeat_interleave(n_slots)
+    slot = torch.zeros(b * n_slots, dtype=dog.dtype, device=dog.device)
+    st = _initial_state(
+        [extrema],
+        dog.dtype,
+        torch.full_like(slot, exact_scalar(delta, dog.dtype)),
+        torch.full_like(slot, exact_scalar(sigma_coeff, dog.dtype)),
+    )
+    base = image * (d_scales * h * w)
+    st = _iterate(dog.reshape(-1), base, d_scales, h, w, st, cfg, (b, n_slots), (octave, octave))
+    return _keypoints_from_state(st, octave, (b, n_slots))
+
+
+def _refine_pool(dogs, extrema_list, octave_offset, cfg, pool_cap) -> Keypoints:
+    """The tensor code of a pool of octaves (:func:`refine_keypoints_multi`)."""
     b, d_scales = dogs[0].shape[:2]
     dtype, dev = dogs[0].dtype, dogs[0].device
     bases, hs, ws, deltas, sigcs, octs = [], [], [], [], [], []
@@ -370,7 +460,6 @@ def refine_keypoints_multi(
         return torch.cat(parts, dim=1).reshape(-1)
 
     n_slots = sum(e.y.shape[-1] for e in extrema_list)
-    pool_cap = min(n_slots, max(256, int(n_slots * cfg.refine_pool_compaction)))
     st = _initial_state(extrema_list, dtype, cat(deltas), cat(sigcs))
     dog_flat = torch.cat([d.reshape(-1) for d in dogs])
     octaves = (octave_offset, octave_offset + len(dogs) - 1)

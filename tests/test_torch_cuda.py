@@ -16,14 +16,19 @@ import torch
 
 import chip_smoke
 import sift_scale_space_extrema_detection_tpu_torch as port
+from sift_scale_space_extrema_detection_tpu_torch.core.types import Extrema
 from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
     _as_unit_float,
+    _pyramid,
+    _select_candidates,
     build_pyramid_fused,
 )
+from sift_scale_space_extrema_detection_tpu_torch.ops import refine
 from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import (
     blur_separable,
     kernel_radius,
 )
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import refine as refine_kernel
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import tiles
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import (
     blur_fused,
@@ -38,6 +43,7 @@ from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
     fused_octave_reference,
     octave_tile_plan,
 )
+from sift_scale_space_extrema_detection_tpu_torch.utils.profile import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -726,7 +732,7 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
                                        chip_smoke._make_batch(4, 96, 128), 2, ("fused",))
     launches, octave_err, sample_err, _ = chip_smoke._shard_bars(
         torch, chip_smoke._read_ranks(str(tmp_path), 2), spec, ref, "", "two gloo ranks")
-    assert launches == (8, 4, 0)
+    assert launches == (8, 4, 0, 8)
     assert octave_err == sample_err == 0.0
 
 
@@ -845,6 +851,212 @@ def test_pooled_refinement_on_card_matches_cpu(device, flag):
     torch.testing.assert_close(got.abs_y.cpu()[v], want.abs_y[v], rtol=1e-5, atol=1e-5)
     for field in ("abs_x", "abs_y", "abs_sigma", "value"):
         assert torch.equal(getattr(got, field), getattr(again, field)), field
+
+
+# --- the refinement kernel against its plain version --------------------------
+
+
+def _card_frames(seed, b, h, w, device):
+    """``(b, h, w)`` float32 frames of :func:`_blob_images`' kind, made on
+    the card (a batch of 64 VGA frames takes minutes in numpy)."""
+    rng = np.random.default_rng(seed)
+    cy, cx, r, a = (
+        torch.tensor(v, dtype=torch.float32, device=device)[:, :, None, None]
+        for v in (rng.uniform(8, h - 8, (b, 60)), rng.uniform(8, w - 8, (b, 60)),
+                  rng.uniform(1.5, 5.0, (b, 60)), rng.uniform(-0.35, 0.35, (b, 60)))
+    )
+    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    img = (0.5 + 0.1 * torch.sin(xx / 6.0) * torch.cos(yy / 8.0)).expand(b, h, w).clone()
+    for k in range(60):
+        img += a[:, k] * torch.exp(-((yy - cy[:, k]) ** 2 + (xx - cx[:, k]) ** 2)
+                                   / (2 * r[:, k] * r[:, k]))
+    return img.clamp(0.0, 1.0)
+
+
+def _ladder_case(kind, seed, b, depth, planes, invalid_rows=()):
+    """DoGs ``(b, depth, h, w)`` and ``n`` candidates an image for each
+    ``(h, w, n)`` of ``planes``, 90 % valid but ``invalid_rows``, as numpy.
+    ``noise``: white noise. ``overflow``: ``1e3 e^(-0.7 x)`` times a bowl
+    in scale and row, so every Newton step moves one column and no slot
+    converges or leaves: every cap of the ladder fills. ``wild``: noise
+    scaled by 10^U(-12, 0) point by point, a third of the rows flat:
+    singular and near-singular Hessians, steps past the int32 range."""
+    rng = np.random.default_rng(seed)
+    dogs, fields = [], []
+    for h, w, n in planes:
+        s = rng.integers(1, depth - 1, (b, n))
+        y = rng.integers(1, h - 1, (b, n))
+        x = rng.integers(1, w - 1, (b, n))
+        if kind == "overflow":
+            ss = np.arange(depth)[:, None, None]
+            yy, xx = np.mgrid[0:h, 0:w]
+            bowl = 1 + 0.3 * (ss - depth // 2) ** 2 + 0.3 * (yy - h // 2) ** 2
+            noise = 1 + 1e-3 * rng.standard_normal((b, depth, h, w))
+            dog = 1e3 * np.exp(-0.7 * xx) * bowl * noise
+            s = rng.integers(2, depth - 2, (b, n))
+            y = rng.integers(h // 2 - 3, h // 2 + 4, (b, n))
+            x = rng.integers(1, 13, (b, n))
+        else:
+            dog = 0.1 * rng.standard_normal((b, depth, h, w))
+        if kind == "wild":
+            dog *= 10.0 ** rng.uniform(-12, 0, dog.shape)
+            dog[:, :, rng.random(h) < 1 / 3] = 0.0
+            # The first slots on a grid of cubes with g = (0, 0, ±1) and H =
+            # [[2, 0, δ], [0, 2, 0], [δ, 0, 0]], δ = 2^-20: det = -2δ², so
+            # the step is ±2^41 columns, past the int32 range both ways.
+            gy, gx = np.mgrid[2:h - 2:3, 2:w - 2:3]
+            k = min(n // 4, gy.size)
+            s[:, :k], y[:, :k], x[:, :k] = 2, gy.ravel()[:k], gx.ravel()[:k]
+            for r in range(b):
+                for i in range(k):
+                    cube = dog[r, 1:4, y[r, i] - 1:y[r, i] + 2, x[r, i] - 1:x[r, i] + 2]
+                    cube[...] = 0.0
+                    cube[0, 1, 1] = cube[2, 1, 1] = cube[1, 0, 1] = cube[1, 2, 1] = 1.0
+                    cube[1, 1, 2], cube[1, 1, 0] = (-1.0) ** i, -((-1.0) ** i)
+                    cube[2, 1, 2] = 4 * 2.0**-20
+        dog = dog.astype(np.float32)
+        valid = rng.random((b, n)) < 0.9
+        valid[list(invalid_rows)] = False
+        counts = np.zeros((b, 5), np.int32)
+        dogs.append(dog)
+        fields.append(dict(y=y.astype(np.int32), x=x.astype(np.int32),
+                           scale_level=s.astype(np.int32),
+                           value=dog[np.arange(b)[:, None], s, y, x], valid=valid,
+                           num_candidates=counts, num_low_contrast=counts))
+    return dogs, fields
+
+
+def _largest_first_step(dog, f):
+    """The largest ``|α|`` of Newton step 1 over the valid slots whose
+    Hessian is not singular, in float64 from the candidates' cubes."""
+    b = np.arange(dog.shape[0])[:, None]
+    s, y, x = f["scale_level"], f["y"], f["x"]
+
+    def v(ds, dy, dx):
+        return dog[b, s + ds, y + dy, x + dx].astype(np.float64)
+
+    c = v(0, 0, 0)
+    g = np.stack([v(1, 0, 0) - v(-1, 0, 0), v(0, 1, 0) - v(0, -1, 0),
+                  v(0, 0, 1) - v(0, 0, -1)], -1) / 2
+    d = [(1, 0, 0), (0, 1, 0), (0, 0, 1)]
+    hess = np.empty(c.shape + (3, 3))
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                hess[..., i, i] = v(*d[i]) + v(*(-k for k in d[i])) - 2 * c
+            else:
+                p = np.add(d[i], d[j])
+                q = np.subtract(d[i], d[j])
+                hess[..., i, j] = (v(*p) - v(*q) - v(*(-q)) + v(*(-p))) / 4
+    ok = f["valid"] & (np.abs(np.linalg.det(hess)) >= 2.0**-52)
+    alpha = -np.linalg.solve(hess[ok], g[ok][..., None])[..., 0]
+    return np.abs(alpha).max()
+
+
+# (kind, batch, scales per octave, planes (h, w, n) or the frame size,
+# pool, rows left without a valid candidate): the benchmark's TUM and KITTI
+# batches at their configurations, every octave (octave 0 960x1280 with
+# 1,280 slots, 768x2560 with 768), at 64 and at one image; a ragged plane
+# with a row of 300 slots, no multiple of the block; a ladder that fills
+# every cap; singular, near-singular and huge steps; rows with no valid
+# candidate; a pool of three octaves whose pool cap lies below its 1,050
+# slots.
+REFINE_CASES = {
+    "tum-b64": ("frames", 64, 5, (480, 640), False, ()),
+    "tum-b1": ("frames", 1, 5, (480, 640), False, ()),
+    "kitti-b64": ("frames", 64, 3, (384, 1280), False, ()),
+    "kitti-b1": ("frames", 1, 3, (384, 1280), False, ()),
+    "ragged": ("noise", 3, 5, [(33, 47, 300)], False, ()),
+    "overflow": ("overflow", 2, 5, [(24, 32, 1000)], False, ()),
+    "wild": ("wild", 4, 3, [(40, 56, 700)], False, ()),
+    "invalid-rows": ("noise", 6, 3, [(30, 40, 200)], False, (0, 2, 5)),
+    "pool": ("noise", 3, 5, [(64, 96, 600), (32, 48, 300), (16, 24, 150)], True, (1,)),
+}
+
+
+@pytest.mark.parametrize("case", list(REFINE_CASES))
+def test_refinement_kernel_matches_plain_version_bit_for_bit(device, case):
+    """Every output field and each row's live count a step: the kernel's
+    and the tensor code's on the card, equal to the bit."""
+    kind, b, spo, shape, pooled, invalid_rows = REFINE_CASES[case]
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=spo, max_keypoints_per_trio=512)
+    if kind == "frames":
+        images = _card_frames(7, b, *shape, device)
+        dogs, masks, _ = _pyramid(images, cfg, "fused", emit_scales=False)
+        _, selected = _select_candidates(dogs, cfg, masks)
+        runs = [([d], [e], o, None) for o, (d, e) in enumerate(zip(dogs, selected))]
+    else:
+        planes, fields = _ladder_case(kind, 11, b, cfg.dog_per_octave, shape, invalid_rows)
+        dogs = [torch.from_numpy(d).to(device) for d in planes]
+        selected = [Extrema(**{k: torch.from_numpy(v).to(device) for k, v in f.items()})
+                    for f in fields]
+        n = sum(e.y.shape[-1] for e in selected)
+        runs = [(dogs, selected, 1, refine._pool_cap(cfg, n) if pooled else None)]
+    reasons = torch.zeros(7, dtype=torch.int64, device=device)
+    for run_dogs, run_sel, first, pool_cap in runs:
+        n = sum(e.y.shape[-1] for e in run_sel)
+        caps = refine._kernel_caps(cfg, n, pool_cap)
+        geometry = [refine._octave_geometry(first + i, cfg) for i in range(len(run_dogs))]
+        before = refine_kernel.newton_ladder.launches
+        got, live = refine_kernel.newton_ladder(run_dogs, run_sel, first, cfg, caps, geometry)
+        torch.cuda.synchronize()
+        assert refine_kernel.newton_ladder.launches == before + 1
+        with tracing(spans=False, counters=True) as session:
+            want = refine.newton_ladder_reference(run_dogs, run_sel, first, cfg, pool_cap)
+        for field in dataclasses.fields(want):
+            g, w = getattr(got, field.name), getattr(want, field.name)
+            assert g.dtype == w.dtype and g.shape == w.shape, field.name
+            assert torch.equal(g, w), field.name
+        last = first + len(run_dogs) - 1
+        tag = f"o{first}" if first == last else f"o{first}-{last}"
+        want_live = [int(session.counters[f"refine.slots_live.{tag}.s{i + 1}"])
+                     for i in range(len(caps))]
+        assert live.sum(0).tolist() == want_live
+        if len(run_dogs) == 1 and pool_cap is None:  # the public route: the kernel
+            routed = refine.refine_keypoints(run_dogs[0], run_sel[0], first, cfg)
+            assert refine_kernel.newton_ladder.launches == before + 2
+            assert torch.equal(routed.reject_reason, want.reject_reason)
+        reasons += torch.bincount(want.reject_reason.flatten() + 1, minlength=7)
+        caps = torch.tensor(caps, device=device)
+        assert (live <= caps).all()
+    reasons = reasons.tolist()  # counts of -1 (no candidate), 0 (accepted), ..., 5
+    if kind == "frames":
+        assert reasons[1] > 0  # accepted
+    if kind == "overflow":
+        assert (live[:, 1:] == caps[1:]).all(dim=1).any()
+    if kind == "wild":
+        assert reasons[4] > 0 and reasons[6] > 0  # left the interior, singular
+        assert _largest_first_step(planes[0], fields[0]) > 2.0**31
+    if invalid_rows:
+        rows = list(invalid_rows)
+        assert (got.reject_reason[rows] == -1).all() and (live[rows] == 0).all()
+    if pooled:
+        assert (live[:, 0] == caps[0]).any() and caps[0] < got.valid.shape[1]
+
+
+def test_the_kernel_route_casts_the_candidates_as_the_tensor_code_does(device):
+    """Candidates whose positions are int64, whose values are float64 and
+    whose valid flags are uint8 refine on the card through the kernel to
+    what the tensor code gives them (which casts them itself)."""
+    planes, fields = _ladder_case("noise", 5, 3, 8, [(40, 56, 300)])
+    dog = torch.from_numpy(planes[0]).to(device)
+    extrema = Extrema(**{k: torch.from_numpy(v).to(device) for k, v in fields[0].items()})
+    wide = dataclasses.replace(
+        extrema, y=extrema.y.long(), x=extrema.x.long(), scale_level=extrema.scale_level.long(),
+        value=extrema.value.double(), valid=extrema.valid.to(torch.uint8),
+    )
+    cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
+    before = refine_kernel.newton_ladder.launches
+    got = refine.refine_keypoints(dog, wide, 1, cfg)
+    torch.cuda.synchronize()
+    assert refine_kernel.newton_ladder.launches == before + 1
+    want = refine.newton_ladder_reference([dog], [wide], 1, cfg)
+    narrow = refine.refine_keypoints(dog, extrema, 1, cfg)
+    assert torch.equal(want.reject_reason, narrow.reject_reason)
+    assert (want.reject_reason >= 0).any()
+    for field in dataclasses.fields(want):
+        assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
 
 
 def test_the_references_orbax_ba_state_restores_onto_the_card(device):

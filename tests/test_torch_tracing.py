@@ -11,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.models import frontend as fe
+from sift_scale_space_extrema_detection_tpu_torch.ops import refine
 from sift_scale_space_extrema_detection_tpu_torch.utils import profile as tracing_mod
 from sift_scale_space_extrema_detection_tpu_torch.utils.profile import (
     NO_SPAN,
@@ -192,8 +193,10 @@ def test_the_pooled_routes_refine_in_the_refine_span(flags):
     assert len(refine) == (1 if flags.get("unified_refine") else 2)
     assert _inside(_ranges(events, "refine.step"), refine)
     assert _inside(refine, _ranges(events, "frontend"))
-    tags = {k.split(".")[2] for k in session.counters}
+    tags = {k.split(".")[2] for k in session.counters if k.startswith("refine.slots_")}
     assert tags == ({"o0-2"} if flags.get("unified_refine") else {"o0", "o1-2"})
+    assert session.counters["refine.route.plain"] == len(refine)
+    assert "refine.route.kernel" not in session.counters
 
 
 def test_refine_counters_match_the_candidates_kept():
@@ -208,6 +211,7 @@ def test_refine_counters_match_the_candidates_kept():
             assert torch.equal(x, y)
     c = session.counters
     steps = range(1, CFG.max_refine_iterations + 1)
+    assert c.pop("refine.route.plain") == CFG.num_octaves
     assert len(c) == 2 * CFG.num_octaves * len(steps)
     assert sum(c[f"refine.slots_live.o{o}.s1"] for o in range(CFG.num_octaves)) > 0
     for o, sel in enumerate(selected):
@@ -216,6 +220,30 @@ def test_refine_counters_match_the_candidates_kept():
         assert live == sorted(live, reverse=True)
         for i in steps:
             assert c[f"refine.slots_stepped.o{o}.s{i}"] == 3 * CFG.refine_capacity(o)
+
+
+@pytest.mark.cuda
+def test_the_kernel_route_counts_what_the_plain_route_counts():
+    """On the card, float32 refinement takes the kernel once an octave and
+    counts the stepped and live slots the tensor code counts there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    images = _frames(b=3).to("cuda")
+    dogs, masks, _ = fe._pyramid(images, CFG, "fused", emit_scales=False)
+    _, selected = fe._select_candidates(dogs, CFG, masks)
+    with tracing(spans=False, counters=True) as plain:
+        want = [refine.newton_ladder_reference([d], [e], o, CFG)
+                for o, (d, e) in enumerate(zip(dogs, selected))]
+    with tracing(spans=False, counters=True) as kernel:
+        got = fe._refine_per_octave(dogs, selected, CFG)
+    c = dict(kernel.counters)
+    assert c.pop("refine.route.kernel") == CFG.num_octaves
+    assert "refine.route.plain" not in c
+    assert c == plain.counters
+    assert sum(c[f"refine.slots_live.o{o}.s1"] for o in range(CFG.num_octaves)) > 0
+    for a, b in zip(want, got):
+        for x, y in zip(vars(a).values(), vars(b).values()):
+            assert torch.equal(x, y)
 
 
 def test_the_session_state_is_back_off_after_an_error():
