@@ -22,7 +22,12 @@ with ``fused``, ``cuda`` or ``pallas`` it exits with a message.
 Usage:
     python -m sift_scale_space_extrema_detection_tpu_torch.cli IMAGE [-o OUTDIR]
         [--octaves N] [--scales N] [--float64] [--blur STRATEGY]
-        [--descriptors] [--no-galleries] [--device cuda|cpu]
+        [--descriptors] [--max-features N] [--no-galleries] [--device cuda|cpu]
+
+``--max-features N`` describes the image as a photo-collection extractor
+does: its N strongest (keypoint, orientation) pairs by ``|value|``, ties at
+the N-th kept, in one compacting describe pass
+(``ops/descriptor.py::describe_compact``); it implies ``--descriptors``.
 """
 
 from __future__ import annotations
@@ -63,6 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--descriptors",
         action="store_true",
         help="also compute orientations + 128-D descriptors",
+    )
+    p.add_argument(
+        "--max-features",
+        type=int,
+        default=None,
+        metavar="N",
+        help="describe only the N strongest (keypoint, orientation) pairs, "
+        "ranked by |value| with ties at the N-th kept (implies --descriptors)",
     )
     p.add_argument(
         "--no-galleries",
@@ -150,7 +163,21 @@ def main(argv=None) -> int:
         masks = None
     keypoints, extrema = frontend.detect_from_dog(dog, cfg, masks)
     described = None
-    if args.descriptors:
+    if args.max_features is not None:
+        # One compacting pass over the keypoints detection refined, sliced at
+        # each octave's refinement capacity, keeping the strongest pairs. The
+        # describe stages are float32, as in the batched entry.
+        from .ops.descriptor import describe_compact
+
+        per_octave = split_keypoints(
+            keypoints, [cfg.refine_capacity(o) for o in range(len(dog))]
+        )
+        stacks = scale_space
+        if args.float64:
+            stacks = [s.to(torch.float32) for s in scale_space]
+            per_octave = [frontend._float32(kp) for kp in per_octave]
+        described = describe_compact(stacks, per_octave, cfg, max_features=args.max_features)
+    elif args.descriptors:
         # Octave by octave on the keypoints detection refined, sliced at
         # each octave's refinement capacity: two window-sampling launches
         # per octave.

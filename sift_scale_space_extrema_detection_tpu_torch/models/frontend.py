@@ -311,7 +311,11 @@ def detect(
 
 
 def detect_and_describe_batched(
-    images: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
+    images: torch.Tensor,
+    cfg: SiftConfig,
+    blur: str = "fused",
+    device: Device = None,
+    max_features: int | None = None,
 ) -> DescribedKeypoints:
     """Batched frontend: ``(B, H, W)`` grayscale → oriented keypoints with
     128-D descriptors, fields ``(B, N)``.
@@ -322,9 +326,16 @@ def detect_and_describe_batched(
     then one compacting describe pass over the whole batch
     (``ops/descriptor.py::describe_compact``), or with
     ``cfg.compact_describe`` off the per-octave path over every slot.
-    ``blur`` and ``device``: see :func:`detect_batched`.
+    ``max_features`` N: each image keeps its N strongest (keypoint,
+    orientation) pairs by ``|value|``, ties at the N-th kept, before the
+    descriptors are computed (``describe_compact``; the compacting pass
+    only, else ``ValueError``). ``blur`` and ``device``: see
+    :func:`detect_batched`.
     """
     check_blur(blur, images.dtype)
+    if max_features is not None and not cfg.compact_describe:
+        raise ValueError("max_features ranks pairs across octaves in the compacting "
+                         "describe pass: it needs cfg.compact_describe")
     with span("frontend"):
         images = _as_unit_float(on_device(images, device))
         dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
@@ -336,7 +347,7 @@ def detect_and_describe_batched(
             stacks = [s.to(torch.float32) for s in stacks]
             keypoints = [_float32(kp) for kp in keypoints]
         if cfg.compact_describe:
-            return describe_compact(stacks, keypoints, cfg)
+            return describe_compact(stacks, keypoints, cfg, max_features=max_features)
         return concat_described(
             [
                 describe_octave(stack, kp, octave, cfg)
@@ -346,11 +357,16 @@ def detect_and_describe_batched(
 
 
 def detect_and_describe(
-    image: torch.Tensor, cfg: SiftConfig, blur: str = "fused", device: Device = None
+    image: torch.Tensor,
+    cfg: SiftConfig,
+    blur: str = "fused",
+    device: Device = None,
+    max_features: int | None = None,
 ) -> DescribedKeypoints:
     """Single-image frontend: ``(H, W)`` grayscale → described keypoints
     ``(N,)``, as a batch of one."""
-    return _first(detect_and_describe_batched(image[None], cfg, blur, device=device))
+    return _first(detect_and_describe_batched(
+        image[None], cfg, blur, device=device, max_features=max_features))
 
 
 def _float32(keypoints: Keypoints) -> Keypoints:

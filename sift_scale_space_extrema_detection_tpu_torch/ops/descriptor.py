@@ -39,7 +39,8 @@ import torch
 from ..config import SiftConfig
 from ..core.device import require_full_float32_matmul
 from ..core.types import Keypoints
-from ..utils.profile import span
+from ..utils.profile import count, counting, span
+from .budget import budget_capacity, keep_strongest
 from .extrema import first_k_set_indices
 from .kernels.describe import window_sample_pair
 
@@ -453,6 +454,7 @@ def describe_compact(
     keypoints_list: list[Keypoints],
     cfg: SiftConfig,
     sample_fn=window_sample_pair,
+    max_features: int | None = None,
 ) -> DescribedKeypoints:
     """One describe pass over all octaves and images, on compacted valid
     keypoints.
@@ -468,20 +470,54 @@ def describe_compact(
        ``cfg.descriptor_pair_capacity()`` slots, and the descriptor stage
        runs on those.
 
-    Per kept keypoint the math is that of :func:`describe_octave`;
-    keypoints are lost only to capacity overflow. With ``cfg.upright`` the
-    orientation stage is skipped and θ = 0 for every keypoint. Returns
-    fields ``(B, pairs)`` and descriptors ``(B, pairs, 128)``.
+    Per kept keypoint the math is that of :func:`describe_octave`. Without
+    a budget, keypoints and pairs are lost only to capacity overflow: the
+    first slots in emission order are kept, and while counters are on
+    ``describe.keypoints_over_capacity`` and ``describe.pairs_over_capacity``
+    count what steps 1 and 3 drop. With ``cfg.upright`` the orientation
+    stage is skipped and θ = 0 for every keypoint.
+
+    ``max_features`` N: each image keeps its N strongest pairs, by
+    ``|value|`` with ties at the N-th kept (``ops/budget.py::keep_strongest``),
+    in the span ``sift.describe.budget``; step 3 compacts those alone, in
+    (octave, slot, orientation) order, into
+    ``ops/budget.py::budget_capacity(N, ...)`` slots. Under ``cfg.upright``
+    a pair is a keypoint. ``None`` describes every pair, as above.
+
+    Returns fields ``(B, pairs)`` and descriptors ``(B, pairs, 128)``.
     ``sample_fn`` is :func:`window_sample_pair` or a function with its
     contract, such as its plain version. The pass runs in the span
     ``sift.describe``, its two sampling stages in ``sift.describe.orientation``
     and ``sift.describe.descriptor``.
     """
     with span("describe"):
-        return _describe_compact(stacks, keypoints_list, cfg, sample_fn)
+        return _describe_compact(stacks, keypoints_list, cfg, sample_fn, max_features)
 
 
-def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn):
+def _count_overflow(name: str, total: torch.Tensor, capacity: int) -> None:
+    """While counters are on, add to ``name`` the set entries that a
+    compaction to ``capacity`` slots dropped (``total``: ``(B,)`` uncapped
+    counts)."""
+    if counting():
+        count(name, (total - capacity).clamp(min=0).sum())
+
+
+def _compact_pairs(pair_valid, capacity: int):
+    """``(index, valid)`` of ``(B, capacity)``: the valid pairs compacted
+    in order, those past ``capacity`` counted as dropped."""
+    pidx, pok, total = first_k_set_indices(pair_valid, capacity)
+    _count_overflow("describe.pairs_over_capacity", total, capacity)
+    return pidx, pok & pair_valid.gather(-1, pidx)
+
+
+def _budget_pairs(strength, pair_valid, max_features: int):
+    """:func:`_compact_pairs` of the pairs that the budget keeps."""
+    with span("describe.budget"):
+        keep = keep_strongest(strength, pair_valid, max_features)
+        return _compact_pairs(keep, budget_capacity(max_features, keep.shape[-1]))
+
+
+def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn, max_features):
     require_full_float32_matmul(stacks[0].device)
     n_ori = cfg.max_orientations_per_keypoint
 
@@ -489,11 +525,13 @@ def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn):
         return torch.cat([getattr(k, field) for k in keypoints_list], dim=-1)
 
     all_valid = cat("valid")  # (B, total)
-    idx, ok, _ = first_k_set_indices(all_valid, cfg.describe_capacity())
-    fields = {
-        name: cat(name).gather(-1, idx)
-        for name in ("octave", "scale_level", "abs_y", "abs_x", "abs_sigma")
-    }
+    capacity = cfg.describe_capacity()
+    idx, ok, total = first_k_set_indices(all_valid, capacity)
+    _count_overflow("describe.keypoints_over_capacity", total, capacity)
+    names = ("octave", "scale_level", "abs_y", "abs_x", "abs_sigma")
+    if max_features is not None:
+        names += ("value",)
+    fields = {name: cat(name).gather(-1, idx) for name in names}
     kvalid = ok & all_valid.gather(-1, idx)
     batch = _batch_column(kvalid).reshape(kvalid.shape)
     # δ_o = 2^(o-1) is a power of two: the divisions are exact.
@@ -515,8 +553,11 @@ def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn):
         )
 
     if cfg.upright:
-        theta_pairs = torch.zeros_like(fields["abs_y"])
         pair_valid = kvalid
+        if max_features is not None:
+            slot, pair_valid = _budget_pairs(fields["value"].abs(), kvalid, max_features)
+            fields = {k: v.gather(-1, slot) for k, v in fields.items()}
+        theta_pairs = torch.zeros_like(fields["abs_y"])
     else:
         with span("describe.orientation"):
             theta, ori_valid = _orientation_stage(slots_of(fields, kvalid), cfg, sample_fn)
@@ -525,10 +566,13 @@ def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn):
         ori_valid = (ori_valid.reshape(b, cap, n_ori) & kvalid[:, :, None]).reshape(
             b, cap * n_ori
         )
-        pidx, pok, _ = first_k_set_indices(ori_valid, cfg.descriptor_pair_capacity())
+        if max_features is None:
+            pidx, pair_valid = _compact_pairs(ori_valid, cfg.descriptor_pair_capacity())
+        else:
+            strength = fields["value"].abs().repeat_interleave(n_ori, dim=-1)
+            pidx, pair_valid = _budget_pairs(strength, ori_valid, max_features)
         slot = pidx // n_ori
         theta_pairs = theta.gather(-1, pidx)
-        pair_valid = pok & ori_valid.gather(-1, pidx)
         fields = {k: v.gather(-1, slot) for k, v in fields.items()}
 
     with span("describe.descriptor"):

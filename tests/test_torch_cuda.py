@@ -280,6 +280,47 @@ def test_detect_and_describe_on_card_matches_cpu(device):
     assert cosine.min() >= 0.9999
 
 
+def test_budgeted_describe_on_card_matches_the_plain_reference(device):
+    """``max_features`` on the card against ``port_bench/reference/budget.py``
+    (plain PyTorch, the same frames on the card) at a mid size with odd
+    plane sides, held by the benchmark's comparison within the photo
+    configuration's limits; the budget binds on every image and no
+    capacity drops a keypoint or a pair."""
+    import json
+    from pathlib import Path
+
+    from port_bench import compare, frames
+    from port_bench.reference import budget as ref_budget
+    from port_bench.reference import config as ref_config
+
+    limits = json.loads((Path(__file__).resolve().parent.parent / "port_bench" / "configs"
+                         / "colmap-3200.json").read_text())["checks"]
+    # Four views of a blob field dense enough that every image ranks
+    # 3,000-5,000 pairs.
+    size = {"width": 1600, "height": 1066,
+            "intrinsics": {"fx": 1440.0, "fy": 1440.0, "cx": 799.5, "cy": 533.0}}
+    scene = {"trajectory": "zigzag", "scene": {
+        "seed": 7, "landmarks_per_unit": 150, "satellites": 3, "satellite_spread": 0.35,
+        "blob_sigma": 20.0, "background": 0.35, "noise": 0.01}}
+    images = frames.make_frames(5, size, scene, 4, device)
+    fields = dict(num_octaves=4, scales_per_octave=3, contrast_threshold=0.02 / 3,
+                  max_keypoints_per_trio=8192, refine_compaction=1.0)
+    n = 1024
+    with tracing(spans=False, counters=True) as session:
+        got = port.detect_and_describe_batched(images, port.SiftConfig(**fields), max_features=n)
+    counters = session.counters
+    assert counters["budget.images_bound"] == 4
+    assert counters["describe.keypoints_over_capacity"] == 0
+    assert counters["describe.pairs_over_capacity"] == 0
+    kept = got.valid.sum(-1)
+    assert bool((kept >= n).all()) and int(kept.sum()) == counters["budget.pairs_kept"]
+    cfg = ref_config.SiftConfig(**fields)
+    want = ref_budget.detect_and_describe_batched(images, cfg, "fused", n)
+    correct, checks = compare.verdict(
+        compare.gaps(compare.fields(got), compare.fields(want), cfg), limits)
+    assert correct, checks
+
+
 def test_per_octave_describe_on_card_matches_cpu(device):
     images = torch.from_numpy(_blob_images(11, 2, 96, 128))
     cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=128, compact_describe=False)
