@@ -8,11 +8,13 @@ Phases (any failure exits non-zero and prints no result):
 
 Wherever a phase below zeroes and reads the launch counts of K1 (the
 fused octave), K2 (window sampling) and K3 (the blur), it zeroes and reads
-R1's (refinement's kernel) beside them and holds it too: one launch an
-octave of each frontend batch on the card (the frontend refines octave by
-octave), one a pool under ``unified_refine`` (all octaves) and
-``refine_tail_pool`` (octave 0, then the rest), none on tracks-only paths.
-Phase 23's ranks report K1-K3 alone.
+R1's (refinement's kernel) and R2's (selection's kernels, one count a
+call) beside them and holds them too. R1: one launch an octave of each
+frontend batch on the card (the frontend refines octave by octave), one a
+pool under ``unified_refine`` (all octaves) and ``refine_tail_pool``
+(octave 0, then the rest), none on tracks-only paths. R2: one an octave
+wherever K1 made the packed plane (the fused route selects from it), none
+on the scale-space paths. Phase 23's ranks report K1-K3 alone.
 
 1. device — CUDA present; the card's name and power limit; the TF32
    settings (the describe stages' histograms are float32 matrix products
@@ -38,6 +40,11 @@ Phase 23's ranks report K1-K3 alone.
    scales (the KITTI benchmark cell's shape): every output field bit for
    bit, and each step's live slots equal to the plain version's counters;
    both timed in turns, each turn enqueued while the stream is held.
+   Selection's kernels (R2, ``ops/kernels/select.py::select_candidates``)
+   against their plain version (``ops/extrema.py::
+   select_refine_candidates_reference``) on each octave's packed plane and
+   DoG of both batches: every ``Extrema`` field and both counters bit for
+   bit; timed the same way.
 6. the describe path — ``detect_and_describe_batched`` on the same batch
    (once as a CPU tensor with no ``device``, results on the card):
    the fused octave launches per octave, the window-sampling kernel per
@@ -330,6 +337,7 @@ from sift_scale_space_extrema_detection_tpu_torch.benchmarks.slam_bench import (
     to_uint16,
 )
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.refine import newton_ladder
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.select import select_candidates
 
 BATCH, HEIGHT, WIDTH = 64, 480, 640
 CSRC = "sift_scale_space_extrema_detection_tpu_torch/ops/kernels/csrc/"
@@ -353,6 +361,9 @@ PREV_DETECT_PEAK_GIB = 7.76
 # abs_x, abs_sigma, omega (16 B) and valid (1 B). The 19 DoG points a live
 # slot gathers a step are left out: the least bytes read them at most once.
 REFINE_SLOT_BYTES = 54
+# R2's least bytes: the packed plane read once, and each slot's y, x, scale
+# level, value (16 B) and valid flag (1 B) written once.
+SELECT_SLOT_BYTES = 17
 
 
 ORACLE_ATOL = 1e-10
@@ -764,15 +775,15 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     thresh = RANSAC_PX / TWO_VIEW_FOCAL
 
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     described = port.detect_and_describe_batched(frames, cfg)
     torch.cuda.synchronize()
     launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches)
+                newton_ladder.launches, select_candidates.launches)
     n_pairs = cfg.descriptor_pair_capacity()
-    _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves),
-             f"the two-view path launched the octave, sampling, blur and refinement kernels "
-             f"{launches} times")
+    _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
+             f"the two-view path launched the octave, sampling, blur, refinement and "
+             f"selection kernels {launches} times")
     _require(tuple(described.descriptor.shape) == (2, n_pairs, 128),
              f"two-view descriptor shape {tuple(described.descriptor.shape)}")
 
@@ -1069,7 +1080,7 @@ def _orbit_sequence(synthetic, frames=ORBIT_FRAMES):
 def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=HEIGHT):
     """Phase 15: images → trajectory, batch and streaming, on ``dev``.
     Returns ``(batch launches, streaming launches, octave_err, sample_err,
-    refs)``; the launches are (K1, K2, K3, R1) counts, ``refs`` the readings
+    refs)``; the launches are (K1, K2, K3, R1, R2) counts, ``refs`` the readings
     phase 17 holds its sharded runs against: the gated sequence's ATE
     (``solved_ate``) and config[3]'s ATE and BA count (``orbit_ate``,
     ``orbit_bas``)."""
@@ -1087,11 +1098,11 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
 
     def zero():
         fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = 0
+        newton_ladder.launches = select_candidates.launches = 0
 
     def counts():
         return (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches)
+                newton_ladder.launches, select_candidates.launches)
 
     def finite(result):
         return bool(np.isfinite(result.rotations).all() & np.isfinite(result.translations).all())
@@ -1115,8 +1126,9 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
         f"{SLAM_REF_LANDMARKS}), ATE {ate:.4f} (bar < {SLAM_REF_ATE}); the same tracks with "
         f"device='cpu': ATE {ate_cpu:.4f} (bar: within {SLAM_ATE_GAP})"
     )
-    _require(small_launches[0] > 0 and small_launches[3] > 0,
-             "the SLAM path did not launch the octave and refinement kernels")
+    _require(small_launches[0] > 0 and small_launches[3] > 0
+             and small_launches[4] == small_launches[0],
+             "the SLAM path did not launch the octave, refinement and selection kernels")
     _require(int(result.landmark_valid.sum()) > SLAM_REF_LANDMARKS, "SLAM: too few landmarks")
     _require(ate < SLAM_REF_ATE, "SLAM: ATE above the reference's bar")
     _require(abs(ate - ate_cpu) < SLAM_ATE_GAP, "SLAM: the card's ATE differs from the CPU's")
@@ -1152,14 +1164,15 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     _say(
         f"SLAM batch: {frames} x {height}x{width} uint16 frames, run_slam_from_images "
         f"(ba_interval 5, ba_window 8, reassoc_window 2, chunks of {SLAM_CHUNK}): launches "
-        f"K1/K2/K3/R1 {launches} (expected {(3 * chunks, 2 * chunks, 0, 3 * chunks)}), valid "
+        f"K1/K2/K3/R1/R2 {launches} (expected "
+        f"{(3 * chunks, 2 * chunks, 0, 3 * chunks, 3 * chunks)}), valid "
         f"landmarks "
         f"{n_landmarks} of {result.points.shape[0]} tracks, {result.num_observations} "
         f"observations, ATE {ate_batch:.4f} (a reading: the reference's spread 0.05-1.58), "
         f"second run bit-equal {same_bits}"
     )
-    _require(launches == (3 * chunks, 2 * chunks, 0, 3 * chunks),
-             f"the SLAM batch path launched K1/K2/K3/R1 {launches} times")
+    _require(launches == (3 * chunks, 2 * chunks, 0, 3 * chunks, 3 * chunks),
+             f"the SLAM batch path launched K1/K2/K3/R1/R2 {launches} times")
     _require(finite(result), "SLAM batch: the trajectory is not finite")
     _require(n_landmarks > SLAM_MIN_LANDMARKS, "SLAM batch: too few landmarks")
     _require(same_bits, "SLAM batch: two runs differ")
@@ -1247,15 +1260,16 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     calls = steps + ((frames - start) % win != 0)
     _say(
         f"SLAM streaming: SlamSession over the same {frames} frames: {len(step_ms)} provisional "
-        f"updates (expected {steps}), launches K1/K2/K3/R1 {stream_launches} (expected "
-        f"{(3 * calls, 2 * calls, 0, 3 * calls)}), after finalize bit-equal to the batch run "
+        f"updates (expected {steps}), launches K1/K2/K3/R1/R2 {stream_launches} (expected "
+        f"{(3 * calls, 2 * calls, 0, 3 * calls, 3 * calls)}), after finalize bit-equal to the "
+        f"batch run "
         f"{stream_same}, "
         f"ATE {ate_stream:.4f} against batch {ate_batch:.4f} (bar: within {SLAM_ATE_GAP}); "
         f"mem:// store empty again {set(checkpoint._MEM_STORE) == stored}"
     )
     _require(len(step_ms) == steps, "SLAM streaming: wrong number of provisional updates")
-    _require(stream_launches == (3 * calls, 2 * calls, 0, 3 * calls),
-             f"the streaming path launched K1/K2/K3/R1 {stream_launches} times")
+    _require(stream_launches == (3 * calls, 2 * calls, 0, 3 * calls, 3 * calls),
+             f"the streaming path launched K1/K2/K3/R1/R2 {stream_launches} times")
     _require(finite(streamed), "SLAM streaming: the trajectory is not finite")
     _require(abs(ate_stream - ate_batch) < SLAM_ATE_GAP, "SLAM streaming: ATE far from batch")
     _require(stream_same, "SLAM streaming: the result differs from the batch run's")
@@ -1346,7 +1360,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     rank spawned on the same ``dev``: the frontend, the BA and config[3]'s
     orbit (:func:`_shard_rank`, held by :func:`_shard_bars`, as phase 20's
     ranks are). ``refs``: phase 15's readings. Returns
-    ``(launches, octave_err, sample_err)``: the (K1, K2, K3, R1) launches of the
+    ``(launches, octave_err, sample_err)``: the (K1, K2, K3, R1, R2) launches of the
     sharded main paths ((a) and every rank of (b)) and the kernels' largest
     differences from their plain versions on them."""
     import dataclasses
@@ -1372,15 +1386,15 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
 
     on_card = dev.type == "cuda"
-    total = [0, 0, 0, 0]
+    total = [0, 0, 0, 0, 0]
 
     def zero():
         fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = 0
+        newton_ladder.launches = select_candidates.launches = 0
 
     def counts():
         got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches)
+               newton_ladder.launches, select_candidates.launches)
         for i, n in enumerate(got):
             total[i] += n
         return got
@@ -1416,8 +1430,8 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         )
         _say(
             f"sharding (a), world 1 ({dist.get_backend()}): detect_and_describe_data_parallel "
-            f"{batch}x{height}x{width}: launches K1/K2/K3/R1 {launches} (expected "
-            f"{(cfg.num_octaves, 2, 0, cfg.num_octaves)}), every field equal to "
+            f"{batch}x{height}x{width}: launches K1/K2/K3/R1/R2 {launches} (expected "
+            f"{(cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves)}), every field equal to "
             f"detect_and_describe_batched's "
             f"{same}; K1/K2 vs plain on its inputs: DoG and stacks max abs diff {octave_err:.3g}, "
             f"masks equal on {100 * masks_same:.4f} % of pixels, window samples {stage_shapes} "
@@ -1426,8 +1440,8 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
             f"{plain_path_ms:.2f} ms, a reading) [{smi}]"
         )
         if on_card:
-            _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves),
-                     f"the data-parallel frontend launched K1/K2/K3/R1 {launches} times")
+            _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
+                     f"the data-parallel frontend launched K1/K2/K3/R1/R2 {launches} times")
         _require(same, "the data-parallel frontend differs from detect_and_describe_batched")
         _require(max(octave_err, sample_err, described_err) <= MAX_ABS_ERR,
                  "sharding: a kernel differs from its plain version")
@@ -1512,7 +1526,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         _say(
             f"sharding (a): run_slam_from_images(mesh=...) on phase 15's gated sequence "
             f"({slam_frames} x {height}x{width}, {SLAM_MATCH_GATE_PX:g} px gate, "
-            f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches K1/K2/K3/R1 "
+            f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches K1/K2/K3/R1/R2 "
             f"{slam_launches} (expected {want_slam}), BAs single/sharded "
             f"{slam_bas} (the run without a mesh: {n_ba} BAs), valid landmarks "
             f"{int(sharded.landmark_valid.sum())}, ATE {ate:.4f} (bars: < {SLAM_REF_ATE}, within "
@@ -1522,7 +1536,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         )
         if on_card:
             _require(slam_launches == want_slam,
-                     f"the sharded SLAM path launched K1/K2/K3/R1 {slam_launches} times")
+                     f"the sharded SLAM path launched K1/K2/K3/R1/R2 {slam_launches} times")
         _require(slam_bas == (0, n_ba) and n_ba > 0, "not every BA of the run was sharded")
         _require(np.isfinite(sharded.translations).all(), "sharded SLAM: not finite")
         _require(ate < SLAM_REF_ATE, "sharded SLAM: ATE above the bar")
@@ -1546,13 +1560,13 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         stream_same = np.array_equal(streamed.rotations, sharded.rotations) and np.array_equal(
             streamed.translations, sharded.translations)
         _say(
-            f"sharding (a): SlamSession(mesh=...) over the same frames: launches K1/K2/K3/R1 "
+            f"sharding (a): SlamSession(mesh=...) over the same frames: launches K1/K2/K3/R1/R2 "
             f"{stream_launches} (expected {want_stream}), BAs single/sharded "
             f"{stream_bas}, bit-equal to the sharded batch run {stream_same}"
         )
         if on_card:
             _require(stream_launches == want_stream,
-                     f"the sharded session launched K1/K2/K3/R1 {stream_launches} times")
+                     f"the sharded session launched K1/K2/K3/R1/R2 {stream_launches} times")
         _require(stream_bas[0] == 0 and stream_bas[1] > 0, "the session's BAs were not sharded")
         _require(stream_same, "the sharded session differs from the sharded batch run")
     finally:
@@ -1667,11 +1681,11 @@ def _shard_rank(rank, workdir: str) -> None:
 
         def zero():
             fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-            newton_ladder.launches = 0
+            newton_ladder.launches = select_candidates.launches = 0
 
         def counts():
             return [fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                    newton_ladder.launches]
+                    newton_ladder.launches, select_candidates.launches]
 
         def peak_gib():
             return torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
@@ -1923,9 +1937,9 @@ def _share_references(torch, port, dev, images, share: int, blurs) -> dict:
 
 
 def _slam_launches(recipe, frames: int, world: int):
-    """``((K1, K2, K3, R1) of run_slam_from_images, (K1, K2, K3, R1) of
+    """``((K1, K2, K3, R1, R2) of run_slam_from_images, (K1, K2, K3, R1, R2) of
     SlamSession)`` on ``frames`` frames of ``recipe`` with a mesh of
-    ``world`` ranks, on each rank: one K1 and one R1 per octave and two K2
+    ``world`` ranks, on each rank: one K1, one R1 and one R2 per octave and two K2
     per frontend chunk of ``SLAM_CHUNK`` frames a rank; the session
     describes each window it solves, once."""
     octaves = recipe["sift_cfg"].num_octaves
@@ -1933,8 +1947,8 @@ def _slam_launches(recipe, frames: int, world: int):
     start, win = 2, recipe["slam_cfg"].ba_interval
     calls = sum(1 for t in range(1, frames + 1) if t >= start + win and (t - start) % win == 0)
     calls += (frames - start) % win != 0
-    return (octaves * chunks, 2 * chunks, 0, octaves * chunks), (
-        octaves * calls, 2 * calls, 0, octaves * calls)
+    return (octaves * chunks, 2 * chunks, 0, octaves * chunks, octaves * chunks), (
+        octaves * calls, 2 * calls, 0, octaves * calls, octaves * calls)
 
 
 def _shard_bars(torch, ranks, spec, ref, smi, label):
@@ -1947,7 +1961,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
     ``orbit_bas`` (BAs without a mesh). Each line starts with ``label``.
     The sharded BA's reruns are held bit-equal on gloo and read on NCCL.
     Returns ``(launches, octave_err, sample_err, blur_err)``: the (K1, K2,
-    K3, R1) launches of every rank's main paths ((a), (d) and the session; (b),
+    K3, R1, R2) launches of every rank's main paths ((a), (d) and the session; (b),
     (c) and (e) launch none) and the kernels' largest differences from their
     plain versions there."""
     import os
@@ -1968,7 +1982,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         for i, n in enumerate(launches):
             total[i] += n
 
-    total, octave_err, sample_err, blur_err = [0, 0, 0, 0], 0.0, 0.0, 0.0
+    total, octave_err, sample_err, blur_err = [0, 0, 0, 0, 0], 0.0, 0.0, 0.0
     _say(
         f"{label}: {world} ranks, backend {ranks[0]['backend']}"
         f"{', NCCL ' + ranks[0]['nccl'] if on_card and nccl else ''}; by rank: LOCAL_RANK "
@@ -1988,8 +2002,8 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         _require(all(g == 0 for o in others for g in o),
                  f"a rank allocated memory on another rank's card: {others}")
 
-    expected = {"fused": [cfg.num_octaves, 2, 0, cfg.num_octaves],
-                "cuda": [0, 2, _blur_count(cfg), cfg.num_octaves]}
+    expected = {"fused": [cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves],
+                "cuda": [0, 2, _blur_count(cfg), cfg.num_octaves, 0]}
     for blur in spec["blurs"]:
         legs = by_rank(lambda r: r[f"frontend_{blur}"])
         want = ref["digests"][blur]
@@ -2001,7 +2015,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         _say(
             f"{label}, frontend, blur={blur!r}: detect_and_describe_data_parallel on "
             f"{world * spec['share']}x{spec['height']}x{spec['width']}, {spec['share']} a rank: "
-            f"launches K1/K2/K3/R1 by rank {[leg['launches'] for leg in legs]} (expected "
+            f"launches K1/K2/K3/R1/R2 by rank {[leg['launches'] for leg in legs]} (expected "
             f"{expected[blur]} each), outputs before the gather on "
             f"{[leg['outputs_on'] for leg in legs]}, every field of the gathered result "
             f"bit-equal to the single device's shares {same}"
@@ -2085,7 +2099,8 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
                 f"{label}, SLAM: run_slam_from_images(mesh=...) on phase 15's gated sequence "
                 f"({spec['slam_frames']} x {spec['height']}x{spec['width']}), "
                 f"dist_ba_min_landmarks={key[5:]}: BAs single/sharded {s[0]['bas']}, launches "
-                f"K1/K2/K3/R1 by rank {[x['launches'] for x in s]} (expected {list(runs)} each), "
+                f"K1/K2/K3/R1/R2 by rank {[x['launches'] for x in s]} (expected {list(runs)} "
+                f"each), "
                 f"valid landmarks {s[0]['landmarks']}, ATE {s[0]['ate']:.4f} (bar: within "
                 f"{SLAM_ATE_GAP} of the single device's {ref['slam_ate']:.4f}), trajectories "
                 f"bit-equal across ranks {same}; {1e3 * s[0]['seconds']:.1f} ms, "
@@ -2108,7 +2123,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         steps = sess[0]["step_ms"]
         _say(
             f"{label}, session: SlamSession(mesh=...) at threshold 0 over the same frames: BAs "
-            f"single/sharded {sess[0]['bas']}, launches K1/K2/K3/R1 by rank "
+            f"single/sharded {sess[0]['bas']}, launches K1/K2/K3/R1/R2 by rank "
             f"{[x['launches'] for x in sess]} (expected {list(session)} each), ATE "
             f"{sess[0]['ate']:.4f} (bar: within {SLAM_ATE_GAP} of the batch run's "
             f"{ranks[0]['slam_0']['ate']:.4f}), bit-equal to the batch run "
@@ -2165,7 +2180,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     ``tools/torch_dryrun_multichip.py --world <world>``; then, on the card,
     (g) ``detect_and_describe_batched(device="cuda:<last card>")`` in this
     process. Returns ``(launches, octave_err, sample_err, blur_err)``: the
-    (K1, K2, K3, R1) launches of the ranks' main paths ((a), (d) and the
+    (K1, K2, K3, R1, R2) launches of the ranks' main paths ((a), (d) and the
     session, summed over the ranks) and of (g), and the kernels' largest
     differences from their plain versions there."""
     import datetime
@@ -2307,11 +2322,11 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
         torch.cuda.reset_peak_memory_stats(0)
         torch.cuda.reset_peak_memory_stats(other)
         fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = 0
+        newton_ladder.launches = select_candidates.launches = 0
         got = port.detect_and_describe_batched(frames, cfg, device=f"cuda:{other.index}")
         torch.cuda.synchronize(other)
         launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                    newton_ladder.launches)
+                    newton_ladder.launches, select_candidates.launches)
         total = [a + b for a, b in zip(total, launches)]
         fields = _described_fields(got)
         on_other = all(t.device == other for t in fields.values())
@@ -2320,14 +2335,14 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
         card0_peak = torch.cuda.max_memory_allocated(0)
         _say(
             f"multicard (g): detect_and_describe_batched(device='{other}') on {batch}x{height}x"
-            f"{width} in this process after the runs on cuda:0: launches K1/K2/K3/R1 "
+            f"{width} in this process after the runs on cuda:0: launches K1/K2/K3/R1/R2 "
             f"{launches}, "
             f"outputs on {other} {on_other}, bit-equal to cuda:0's {same}; card 0 allocated "
             f"{held} bytes before and at most {card0_peak} during the call, card "
             f"{other.index} peaked at {gib(torch.cuda.max_memory_allocated(other))}; current "
             f"device {torch.cuda.current_device()} [{smi}]"
         )
-        _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves),
+        _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
                  f"cuda:{other.index}: launches {launches}")
         _require(on_other and same, f"the run on {other} differs from cuda:0's")
         _require(card0_peak == held, f"the run on {other} allocated on card 0")
@@ -2454,15 +2469,15 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
 
     on_card = dev.type == "cuda"
     card = [] if on_card else ["--device", "cpu"]  # a CPU rehearsal runs both legs there
-    total = [0, 0, 0, 0]
+    total = [0, 0, 0, 0, 0]
 
     def zero():
         fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        fused_octave.clamped_launches = newton_ladder.launches = 0
+        fused_octave.clamped_launches = newton_ladder.launches = select_candidates.launches = 0
 
     def counts():
         got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches)
+               newton_ladder.launches, select_candidates.launches)
         for i, n in enumerate(got):
             total[i] += n
         return got
@@ -2492,7 +2507,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         share, min_cos = descriptor_cosines(got_desc, want_desc)
         timing = [ln for ln in text.splitlines() if ln.startswith("pipeline:")]
         _say(
-            f"cli {name} {' '.join(flags)}: launches K1/K2/K3/R1 {launches} (expected "
+            f"cli {name} {' '.join(flags)}: launches K1/K2/K3/R1/R2 {launches} (expected "
             f"{expected}), "
             f"K1 clamped {clamped}; {len(got)} keypoints against {len(want)} with --device cpu: "
             f"slot agreement {matched:.6f}, p99 position delta {p99:.3g} px; {len(got_desc['abs_x'])} "
@@ -2512,12 +2527,12 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     path = os.path.join(work, "frame.png")
     write_png(path, frame)
     desc = ["--descriptors"]
-    octaves = cfg.num_octaves  # each refined on its own, by R1
-    clamped, _ = cli_pair(path, "fused", desc, (octaves, 2 * octaves, 0, octaves))
+    octaves = cfg.num_octaves  # each refined on its own, by R1, and selected by R2
+    clamped, _ = cli_pair(path, "fused", desc, (octaves, 2 * octaves, 0, octaves, octaves))
     if on_card:
         _require(clamped == 1, "cli: the deepest octave did not take the clamped mode")
     _, cuda_records = cli_pair(path, "cuda", desc + ["--blur", "cuda"],
-                               (0, 2 * octaves, n_blurs, octaves))
+                               (0, 2 * octaves, n_blurs, octaves, 0))
     # --blur matmul: full float32 products run, TF32 is refused.
     zero()
     rc, _ = _quiet(cli.main, [path, "-o", os.path.join(work, "matmul"), "--blur", "matmul",
@@ -2542,12 +2557,13 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
     _say(
-        f"cli --blur matmul: exit code {rc}, launches K1/K2/K3/R1 {matmul_launches}, against the "
+        f"cli --blur matmul: exit code {rc}, launches K1/K2/K3/R1/R2 {matmul_launches}, against "
+        f"the "
         f"--blur cuda run: slot agreement {matched:.6f}, p99 {p99:.3g} px (readings); its scale space "
         f"against the tap loop's on the card: max abs diff {matmul_err:.3g} (bar {MATMUL_ATOL}); "
         f"with TF32 on: refused {refused}"
     )
-    _require(rc == 0 and matmul_launches == (0, 0, 0, octaves if on_card else 0),
+    _require(rc == 0 and matmul_launches == (0, 0, 0, octaves if on_card else 0, 0),
              "cli --blur matmul launched a kernel of the fused or blur paths, or refined plainly")
     _require(matmul_err <= MATMUL_ATOL, "blur_matmul differs from the tap loop")
     _require(refused, "cli --blur matmul ran with TF32 on")
@@ -2567,7 +2583,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     for name, pixels in (("kitti", kitti_frame), ("kitti_padded", pad_to_tpu_friendly(kitti_frame))):
         path = os.path.join(work, f"{name}.png")
         write_png(path, pixels)
-        cli_pair(path, name, desc, (octaves, 2 * octaves, 0, octaves))
+        cli_pair(path, name, desc, (octaves, 2 * octaves, 0, octaves, octaves))
         base = torch.from_numpy(pixels)[None].to(dev).float() / torch.full((), 255.0, device=dev)
         worst, same = 0.0, 1.0
         for octave in range(cfg.num_octaves):
@@ -2626,13 +2642,14 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         rows = read_tum_trajectory(traj)[0].shape[0]
         chunks = -(-frames // SLAM_CHUNK)
         eval_octaves = args[1].num_octaves
-        expected = (eval_octaves * chunks, 2 * chunks, 0, eval_octaves * chunks)
+        expected = (eval_octaves * chunks, 2 * chunks, 0, eval_octaves * chunks,
+                    eval_octaves * chunks)
         _say(
             f"evaluate {fmt}: {loaded.strip()}; natively decoded {native} "
             f"of {frames} frames, equal to the written pixels / 255 {decoded_ok}; frames handed to "
             f"SLAM {tuple(images.shape)} equal to the decoded and padded frames {same_frames}; "
             f"trajectory bit-equal to run_slam_from_images in this process {same_bits}; "
-            f"{rows} rows read back; launches K1/K2/K3/R1 {launches} (expected {expected})"
+            f"{rows} rows read back; launches K1/K2/K3/R1/R2 {launches} (expected {expected})"
         )
         _say(
             f"timing evaluate {fmt}: SLAM {metrics['slam_frames_per_s']} frames/s "
@@ -2687,9 +2704,9 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     _require(rc == 0, f"evaluate {' '.join(solved)} --device cpu: exit code {rc}")
     cpu_metrics = json.loads(text.strip().splitlines()[-1])
     chunks = -(-solved_frames // SLAM_CHUNK)
-    expected = (4 * chunks, 2 * chunks, 0, 4 * chunks)  # evaluate's 4 octaves
+    expected = (4 * chunks, 2 * chunks, 0, 4 * chunks, 4 * chunks)  # evaluate's 4 octaves
     _say(
-        f"evaluate tum {' '.join(solved)}: launches K1/K2/K3/R1 {launches} (expected "
+        f"evaluate tum {' '.join(solved)}: launches K1/K2/K3/R1/R2 {launches} (expected "
         f"{expected}); "
         f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
         f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg, SLAM "
@@ -2723,9 +2740,9 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     metrics = json.loads(text.strip().splitlines()[-1])
     _, rots, trans = read_tum_trajectory(traj)
     long_chunks = -(-long_frames // SLAM_CHUNK)
-    expected = (0, 2 * long_chunks, 0, 4 * long_chunks)  # K2 twice, R1 4 times a chunk
+    expected = (0, 2 * long_chunks, 0, 4 * long_chunks, 0)  # K2 twice, R1 4 times a chunk
     _say(
-        f"evaluate tum {' '.join(flags)}: launches K1/K2/K3/R1 {launches} (expected "
+        f"evaluate tum {' '.join(flags)}: launches K1/K2/K3/R1/R2 {launches} (expected "
         f"{expected}); "
         f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
         f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg (readings), SLAM "
@@ -2747,12 +2764,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     """Phase 18: the blur-by-blur frontend (``blur="cuda"``: K3 once per
     blurred scale, each trio capped on its own) on the detect, describe,
     SLAM, streaming, sharded and ``evaluate`` paths, and the pooled
-    refinement flags on the fused path, on ``dev``. Each part's K1/K2/K3/R1
+    refinement flags on the fused path, on ``dev``. Each part's K1/K2/K3/R1/R2
     launches are counted from zero. ``blur="cuda"`` is held equal to
     ``blur="separable"`` on the same device (K3 is bit-equal to its plain
     version), and the card against ``device="cpu"`` on the batch's first
     ``cpu_frames`` frames (an image is detected on its own). Returns
-    ``(launches, sample_err)``: the (K1, K2, K3, R1) launches of the paths
+    ``(launches, sample_err)``: the (K1, K2, K3, R1, R2) launches of the paths
     driven here and K2's largest difference from its plain version on this path's
     slots."""
     import dataclasses
@@ -2784,15 +2801,15 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     )
 
     on_card = dev.type == "cuda"
-    total = [0, 0, 0, 0]
+    total = [0, 0, 0, 0, 0]
 
     def zero():
         fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = 0
+        newton_ladder.launches = select_candidates.launches = 0
 
     def counts():
         got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches)
+               newton_ladder.launches, select_candidates.launches)
         for i, n in enumerate(got):
             total[i] += n
         return got
@@ -2887,7 +2904,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     _say(
         f"per-trio detect (a): detect_batched(blur='cuda') {shape}, {cfg.num_octaves} octaves x "
         f"{cfg.scales_per_octave} scales, {cfg.max_keypoints_per_trio} slots a trio at octave 0: "
-        f"launches K1/K2/K3/R1 {launches} (expected {(0, 0, n_blurs, octaves)}); every field "
+        f"launches K1/K2/K3/R1/R2 {launches} (expected {(0, 0, n_blurs, octaves, 0)}); every field "
         f"and every "
         f"octave's per-trio Extrema equal to blur='separable' on the same device {same}; valid "
         f"keypoints {int(keypoints.valid.sum())} (fused path {int(fused.valid.sum())}), "
@@ -2901,7 +2918,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         f"synchronised stages: {stages} [{smi}]"
     )
     if on_card:
-        _require(launches == (0, 0, n_blurs, octaves), f"per-trio detect: launches {launches}")
+        _require(launches == (0, 0, n_blurs, octaves, 0), f"per-trio detect: launches {launches}")
     _require(same, "per-trio detect: blur='cuda' differs from blur='separable'")
     _require(int(keypoints.valid.sum()) > 0, "per-trio detect: no valid keypoints")
     _require(all(bool(torch.isfinite(getattr(keypoints, f)[keypoints.valid]).all())
@@ -2953,7 +2970,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     )
     _say(
         f"per-trio describe (b): detect_and_describe_batched(blur='cuda') {shape}: launches "
-        f"K1/K2/K3/R1 {describe_launches} (expected {(0, 2, n_blurs, octaves)}); every field "
+        f"K1/K2/K3/R1/R2 {describe_launches} (expected {(0, 2, n_blurs, octaves, 0)}); every field "
         f"equal to "
         f"blur='separable' on the same device {same}; valid descriptors "
         f"{int(described.valid.sum())}; against device='cpu' on the first {cpu_frames} frames: "
@@ -2967,7 +2984,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         f"[{smi}]"
     )
     if on_card:
-        _require(describe_launches == (0, 2, n_blurs, octaves),
+        _require(describe_launches == (0, 2, n_blurs, octaves, 0),
                  f"per-trio describe: launches {describe_launches}")
     _require(same, "per-trio describe: blur='cuda' differs from blur='separable'")
     _require(int(described.valid.sum()) > 0, "per-trio describe: no valid descriptors")
@@ -2999,11 +3016,11 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         dist.destroy_process_group()
     _say(
         f"per-trio sharded (e): detect_and_describe_data_parallel(blur='cuda') at world 1 "
-        f"({backend}) on {shape}: launches K1/K2/K3/R1 {shard_launches} (expected "
-        f"{(0, 2, n_blurs, octaves)}); every field equal to (b) {shard_same}"
+        f"({backend}) on {shape}: launches K1/K2/K3/R1/R2 {shard_launches} (expected "
+        f"{(0, 2, n_blurs, octaves, 0)}); every field equal to (b) {shard_same}"
     )
     if on_card:
-        _require(shard_launches == (0, 2, n_blurs, octaves),
+        _require(shard_launches == (0, 2, n_blurs, octaves, 0),
                  f"per-trio sharded: launches {shard_launches}")
     _require(shard_same, "per-trio sharded: the data-parallel frontend differs from (b)")
     del sharded, described
@@ -3011,7 +3028,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     # (g) the pooled refinement flags on the fused path.
     for flag, pools in (("unified_refine", 1), ("refine_tail_pool", 2)):
         flagged = dataclasses.replace(cfg, **{flag: True})
-        expected = (octaves, 0, 0, pools)  # R1 once a pool: all octaves, or octave 0 and the rest
+        expected = (octaves, 0, 0, pools, octaves)  # R1 once a pool: all, or octave 0 and the rest
         zero()
         pooled, _ = port.detect_batched(images, flagged, device=dev)
         _sync(torch, dev)
@@ -3024,7 +3041,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         pool_ms = _host_ms(torch, lambda: port.detect_batched(images, flagged, device=dev), 3, dev)
         _say(
             f"pooled refinement (g), {flag}: detect_batched {shape} (fused): launches "
-            f"K1/K2/K3/R1 {pool_launches} (expected {expected}); valid "
+            f"K1/K2/K3/R1/R2 {pool_launches} (expected {expected}); valid "
             f"{int(pooled.valid.sum())} (per octave {int(fused.valid.sum())}), reject_reason "
             f"differs from the per-octave path on {moved} slots; rerun bit-equal {rerun_same}; "
             f"against device='cpu' on the first {cpu_frames} frames: slot agreement "
@@ -3069,11 +3086,11 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
                                  gt_r, gt_t, device=dev)
     ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, slam_cfg, device="cpu"),
                                 gt_r, gt_t, device="cpu")
-    expected = (0, 2 * chunks, per_chunk * chunks, sift_cfg.num_octaves * chunks)
+    expected = (0, 2 * chunks, per_chunk * chunks, sift_cfg.num_octaves * chunks, 0)
     _say(
         f"per-trio SLAM (c): run_slam_from_images(blur='cuda') on phase 15's {slam_frames} x "
         f"{height}x{width} sequence, {SLAM_MATCH_GATE_PX:g} px gate, {SLAM_MAX_TRACKS} tracks: "
-        f"launches K1/K2/K3/R1 {slam_launches} (expected {expected}: {chunks} chunks x "
+        f"launches K1/K2/K3/R1/R2 {slam_launches} (expected {expected}: {chunks} chunks x "
         f"{per_chunk} blurs), trajectory bit-equal to blur='separable' {slam_same}, valid "
         f"landmarks {int(result.landmark_valid.sum())} of {visible.shape[1]} tracks, ATE "
         f"{ate:.4f}; run_slam on these tracks: ATE {ate_card:.4f} on the card, {ate_cpu:.4f} "
@@ -3102,10 +3119,10 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     start, win = 2, slam_cfg.ba_interval
     steps = sum(1 for t in range(1, slam_frames + 1) if t >= start + win and (t - start) % win == 0)
     calls = steps + ((slam_frames - start) % win != 0)
-    expected = (0, 2 * calls, per_chunk * calls, sift_cfg.num_octaves * calls)
+    expected = (0, 2 * calls, per_chunk * calls, sift_cfg.num_octaves * calls, 0)
     _say(
         f"per-trio streaming (d): SlamSession(blur='cuda') over the same frames: launches "
-        f"K1/K2/K3/R1 {stream_launches} (expected {expected}), bit-equal to (c) {stream_same}"
+        f"K1/K2/K3/R1/R2 {stream_launches} (expected {expected}), bit-equal to (c) {stream_same}"
     )
     if on_card:
         _require(stream_launches == expected, f"per-trio streaming: launches {stream_launches}")
@@ -3132,10 +3149,10 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     cpu_metrics = runs["cpu"][1]
     eval_chunks = -(-solved_frames // SLAM_CHUNK)
     eval_blurs = _blur_count(port.SiftConfig(num_octaves=4))  # evaluate's 4 octaves x 3 scales
-    expected = (0, 2 * eval_chunks, eval_blurs * eval_chunks, 4 * eval_chunks)
+    expected = (0, 2 * eval_chunks, eval_blurs * eval_chunks, 4 * eval_chunks, 0)
     _say(
         f"per-trio evaluate (f): evaluate --blur pallas {' '.join(solved)} on the TUM rehearsal: "
-        f"launches K1/K2/K3/R1 {eval_launches} (expected {expected}); trajectory equal to "
+        f"launches K1/K2/K3/R1/R2 {eval_launches} (expected {expected}); trajectory equal to "
         f"--blur "
         f"cuda {traj_same}; {metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, SLAM "
         f"{metrics['slam_frames_per_s']} frames/s; --device cpu --blur separable: "
@@ -3177,8 +3194,8 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     orbax, tensorstore or zstandard exists, and BASELINE config[3] resumed
     from one on ``dev``. ``orbit_ate``: phase 15 (g)'s uninterrupted ATE,
     printed beside the resumed one. Nothing here is caught: an unreadable
-    fixture ends the script. Returns the (K1, K2, K3, R1) launches of the resume
-    (none: ``run_slam`` on tracks runs no frontend)."""
+    fixture ends the script. Returns the (K1, K2, K3, R1, R2) launches of the
+    resume (none: ``run_slam`` on tracks runs no frontend)."""
     import os
     import shutil
     import tempfile
@@ -3238,7 +3255,7 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     )
     cfg = port.SlamConfig()
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     results, run_s = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("slam", "slam_npz"):
@@ -3251,7 +3268,7 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
             _sync(torch, dev)
             run_s[name] = time.perf_counter() - t0
     launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches)
+                newton_ladder.launches, select_candidates.launches)
     got, npz = results["slam"], results["slam_npz"]
     same = (np.array_equal(got.rotations, npz.rotations)
             and np.array_equal(got.translations, npz.translations))
@@ -3267,14 +3284,14 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
         f"{same}, valid landmarks {landmarks} (bar > {ORBIT_MIN_LANDMARKS}), ATE {ate:.6f} (bars: "
         f"< {ORBIT_ATE}, within {SLAM_ATE_GAP} of the JAX package's resumed "
         f"{record['jax_resumed_ate']:.6f}); phase 15 (g)'s uninterrupted ATE {orbit_ate:.6f}; "
-        f"K1/K2/K3/R1 {launches} [{smi}]"
+        f"K1/K2/K3/R1/R2 {launches} [{smi}]"
     )
     _require(same, "orbax: the resume differs from the npz twin's")
     _require(landmarks > ORBIT_MIN_LANDMARKS, "orbax resume: too few landmarks")
     _require(ate < ORBIT_ATE, "orbax resume: ATE above the reference's bar")
     _require(abs(ate - record["jax_resumed_ate"]) < SLAM_ATE_GAP,
              "orbax resume: ATE far from the JAX package's")
-    _require(launches == (0, 0, 0, 0), "orbax resume: a kernel launched on a tracks-only path")
+    _require(launches == (0, 0, 0, 0, 0), "orbax resume: a kernel launched on a tracks-only path")
 
     # (c) no way round the reader.
     loaded = sorted(m for m in sys.modules
@@ -3596,10 +3613,11 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
     runs: K1 in ``bench`` and ``--blur fused``, K3 with ``--blur cuda``, K2
     in every describe, every SLAM mode and ``descriptor_bench`` (the modules
     raise where a kernel of their path was launched no time), and no other.
-    Every count is zeroed before the phase; returns its (K1, K2, K3, R1)
-    launches (R1, refinement, counted over the phase: on the card every
-    script here but ``ba_bench`` refines). The other arguments cut it for a
-    CPU rehearsal."""
+    Every count is zeroed before the phase; returns its (K1, K2, K3, R1, R2)
+    launches (R1, refinement, and R2, selection, counted over the phase: on
+    the card every script here but ``ba_bench`` refines, and every fused
+    frontend selects on R2). The other arguments cut it for a CPU
+    rehearsal."""
     import tempfile
 
     from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
@@ -3620,7 +3638,7 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
     if on_card:
         torch.cuda.empty_cache()
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     t_phase = time.perf_counter()
     outputs = {}
 
@@ -3676,12 +3694,14 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
          f"{LOOP_REGIME_TPU_ATE} [{smi}]")
     check("descriptor_bench", descriptor_bench.run(device=device, warps=warps),
           {k1: False, k2: True, k3: False})
-    launches = dict(kernel_counts(), newton_ladder=newton_ladder.launches)
+    launches = dict(kernel_counts(), newton_ladder=newton_ladder.launches,
+                    select_candidates=select_candidates.launches)
     _say(f"benchmarks: phase 22 launched {launches} and took "
          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
     if on_card:
         _require(launches["newton_ladder"] > 0, "benchmarks: refinement never took its kernel")
-    return tuple(launches[k] for k in (k1, k2, k3, "newton_ladder")), outputs
+        _require(launches["select_candidates"] > 0, "benchmarks: selection never took its kernels")
+    return tuple(launches[k] for k in (k1, k2, k3, "newton_ladder", "select_candidates")), outputs
 
 
 # Phase 23: scatter_probe also at 16x the script's observations and landmarks
@@ -3779,6 +3799,9 @@ def main() -> int:
         describe_compact,
         describe_octave,
     )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.extrema import (
+        select_refine_candidates_reference,
+    )
     from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import (
         blur_separable,
         kernel_radius,
@@ -3857,10 +3880,11 @@ def main() -> int:
              "detect_batched of a CPU tensor did not run on the card")
     del warm
     torch.cuda.reset_peak_memory_stats()
-    fused_octave.launches = newton_ladder.launches = 0
+    fused_octave.launches = newton_ladder.launches = select_candidates.launches = 0
     keypoints, extrema = detect_batched(images, cfg)
     torch.cuda.synchronize()
-    launches, detect_r1 = fused_octave.launches, newton_ladder.launches
+    launches, detect_r1, detect_r2 = (fused_octave.launches, newton_ladder.launches,
+                                      select_candidates.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_slots = sum(cfg.refine_capacity(o) for o in range(cfg.num_octaves))
     valid = keypoints.valid
@@ -3868,6 +3892,7 @@ def main() -> int:
     _say(
         f"main path: detect_batched {BATCH}x{HEIGHT}x{WIDTH}, "
         f"{cfg.num_octaves} octaves x {spo} scales: kernel launches {launches}, R1 {detect_r1}, "
+        f"R2 {detect_r2}, "
         f"valid keypoints {n_valid} of {BATCH * n_slots} slots, peak device "
         f"memory {peak_gib:.2f} GiB (with the three-pass kernel and its scratch: "
         f"{PREV_DETECT_PEAK_GIB} GiB), reject counts "
@@ -3875,6 +3900,7 @@ def main() -> int:
     )
     _require(launches >= cfg.num_octaves, "the main path did not launch the kernel per octave")
     _require(detect_r1 == cfg.num_octaves, "the main path did not refine once an octave on R1")
+    _require(detect_r2 == cfg.num_octaves, "the main path did not select once an octave on R2")
     _require(tuple(valid.shape) == (BATCH, n_slots), f"keypoint shape {tuple(valid.shape)}")
     _require(n_valid > 0, "no valid keypoints")
     for name in ("abs_x", "abs_y", "abs_sigma", "value"):
@@ -4031,6 +4057,49 @@ def main() -> int:
         f"plain {refine_plain_ms:.3f} ms, bound {refine_bound_ms:.4f} ms "
         f"({REFINE_SLOT_BYTES} B a slot) [{smi}]"
     )
+
+    # R2 against its plain version on every octave's packed plane and DoG
+    # of both batches.
+    select_ms = select_plain_ms = select_bound_ms = 0.0
+    select_checked = 0
+    for name, run_cfg, run_dogs, run_masks in (("tum", cfg, dogs, masks),
+                                               ("kitti", kitti_cfg, kitti_dogs, kitti_masks)):
+        for octave, (dog, packed) in enumerate(zip(run_dogs, run_masks)):
+            capacity = run_cfg.refine_capacity(octave)
+
+            def kernel(dog=dog, packed=packed, capacity=capacity):
+                return select_candidates(packed, dog, capacity)
+
+            def plain(dog=dog, packed=packed, capacity=capacity, run_cfg=run_cfg):
+                return select_refine_candidates_reference(packed, dog, run_cfg, capacity)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            equal = [f.name for f in dataclasses.fields(want)
+                     if not torch.equal(getattr(got, f.name), getattr(want, f.name))]
+            turns = _turns_of(torch, {"plain": plain, "kernel": kernel},
+                              {"plain": 1, "kernel": 20})
+            bound = _bound(packed.numel() * packed.element_size()
+                           + SELECT_SLOT_BYTES * want.valid.numel(), 0)
+            select_ms += turns["kernel"]
+            select_plain_ms += turns["plain"]
+            select_bound_ms += bound[0]
+            select_checked += 1
+            _say(
+                f"R2 vs plain, {name} octave {octave} plane {tuple(packed.shape)} "
+                f"{packed.dtype}, capacity {capacity}, candidates an image up to "
+                f"{int(want.num_candidates.sum(-1).max())}: fields differing {equal}; kernel "
+                f"{turns['kernel']:.4f} ms, plain {turns['plain']:.3f} ms (held turns), "
+                f"plain/kernel {turns['plain'] / turns['kernel']:.1f}x, bound {bound[0]:.4f} ms "
+                f"by {bound[1]} [{smi}]"
+            )
+            _require(not equal, f"R2 differs from its plain version in {equal} ({name} {octave})")
+            del got, want
+    _say(
+        f"timing R2, the {select_checked} octaves of both batches: kernel {select_ms:.4f} ms, "
+        f"plain {select_plain_ms:.3f} ms, bound {select_bound_ms:.4f} ms (the plane read once, "
+        f"{SELECT_SLOT_BYTES} B a slot written) [{smi}]"
+    )
     del kitti_dogs, kitti_masks, selected
 
     del dogs, masks
@@ -4043,7 +4112,7 @@ def main() -> int:
     del warm
     torch.cuda.reset_peak_memory_stats()
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     described = detect_and_describe_batched(images, cfg)
     torch.cuda.synchronize()
     describe_launches = {
@@ -4051,6 +4120,7 @@ def main() -> int:
         "window_sample_pair": window_sample_pair.launches,
         "blur_fused": blur_fused.launches,
         "newton_ladder": newton_ladder.launches,
+        "select_candidates": select_candidates.launches,
     }
     describe_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     dvalid = described.valid
@@ -4070,6 +4140,8 @@ def main() -> int:
              "the fused-only describe path launched the stand-alone blur")
     _require(describe_launches["newton_ladder"] == cfg.num_octaves,
              "the describe path did not refine once an octave on R1")
+    _require(describe_launches["select_candidates"] == cfg.num_octaves,
+             "the describe path did not select once an octave on R2")
     _require(tuple(described.descriptor.shape) == (BATCH, cfg.descriptor_pair_capacity(), 128),
              f"descriptor shape {tuple(described.descriptor.shape)}")
     _require(n_described > 0, "no valid descriptors")
@@ -4139,10 +4211,11 @@ def main() -> int:
     # The per-octave describe, which ``compact_describe=False`` selects:
     # every slot of every octave, one single-stack slot table per octave.
     per_octave_cfg = dataclasses.replace(cfg, compact_describe=False)
-    window_sample_pair.launches = newton_ladder.launches = 0
+    window_sample_pair.launches = newton_ladder.launches = select_candidates.launches = 0
     per_octave = detect_and_describe_batched(images, per_octave_cfg)
     torch.cuda.synchronize()
-    per_octave_launches, per_octave_r1 = window_sample_pair.launches, newton_ladder.launches
+    per_octave_launches, per_octave_r1, per_octave_r2 = (
+        window_sample_pair.launches, newton_ladder.launches, select_candidates.launches)
     per_octave_plain = concat_described([
         describe_octave(stack, kp, octave, cfg, sample_fn=window_sample_pair_reference)
         for octave, (stack, kp) in enumerate(zip(stacks, keypoints_list))
@@ -4158,7 +4231,7 @@ def main() -> int:
     )
     _say(
         f"per-octave describe (compact_describe=False) {BATCH}x{HEIGHT}x{WIDTH}: sampling "
-        f"launches {per_octave_launches}, R1 {per_octave_r1}, over "
+        f"launches {per_octave_launches}, R1 {per_octave_r1}, R2 {per_octave_r2}, over "
         f"{tuple(per_octave.valid.shape)} pair slots, "
         f"valid {int(per_octave.valid.sum())} (compacting path {n_described}); against the "
         f"plain sampler: slots equal {per_octave_same}, descriptor and theta max abs diff "
@@ -4167,6 +4240,7 @@ def main() -> int:
     _require(per_octave_launches == 2 * cfg.num_octaves,
              "the per-octave describe did not launch the sampling kernel twice per octave")
     _require(per_octave_r1 == cfg.num_octaves, "the per-octave describe did not refine on R1")
+    _require(per_octave_r2 == cfg.num_octaves, "the per-octave describe did not select on R2")
     _require(per_octave_same, "per-octave describe: slots differ from the plain sampler's")
     _require(per_octave_err <= MAX_ABS_ERR, "per-octave describe differs from the plain sampler's")
     _require(int(per_octave.valid.sum()) >= n_described,
@@ -4178,11 +4252,12 @@ def main() -> int:
     n_blurs = _blur_count(cfg)
     build_scale_space(images[:4], cfg, blur="cuda")  # warm-up
     fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     scale_space = build_scale_space(images, cfg, blur="cuda")
     torch.cuda.synchronize()
     blur_launches = blur_fused.launches
-    _require(newton_ladder.launches == 0, "the scale-space path launched R1")
+    _require(newton_ladder.launches == select_candidates.launches == 0,
+             "the scale-space path launched R1 or R2")
     space_err = max((a - b).abs().max().item() for a, b in zip(scale_space, stacks))
     _say(
         f"scale-space path: build_scale_space(blur='cuda') on {tuple(images.shape)}: blur "
@@ -4333,11 +4408,12 @@ def main() -> int:
     deep_cfg = SiftConfig()  # 5 octaves x 3 scales
     deep = cfg.num_octaves  # the octave past the paths above
     detect_batched(images[:4], deep_cfg)  # warm-up
-    fused_octave.launches = fused_octave.clamped_launches = newton_ladder.launches = 0
+    fused_octave.launches = fused_octave.clamped_launches = 0
+    newton_ladder.launches = select_candidates.launches = 0
     deep_keypoints, _ = detect_batched(images, deep_cfg)
     torch.cuda.synchronize()
     deep_launches = fused_octave.launches, fused_octave.clamped_launches
-    deep_r1 = newton_ladder.launches
+    deep_r1, deep_r2 = newton_ladder.launches, select_candidates.launches
     dogs, masks = build_pyramid_fused(images, deep_cfg, octave_fn=fused_octave_reference)
     deep_plain = concat_keypoints(detect_octaves(dogs, deep_cfg, masks)[0])
     torch.cuda.synchronize()
@@ -4351,7 +4427,7 @@ def main() -> int:
     _say(
         f"clamped mode: detect_batched {BATCH}x{HEIGHT}x{WIDTH} at {deep_cfg.num_octaves} "
         f"octaves x {deep_cfg.scales_per_octave} scales: kernel launches {deep_launches[0]}, "
-        f"of them clamped {deep_launches[1]}, R1 {deep_r1}; valid "
+        f"of them clamped {deep_launches[1]}, R1 {deep_r1}, R2 {deep_r2}; valid "
         f"{int(deep_keypoints.valid.sum())} vs plain "
         f"{int(deep_plain.valid.sum())} ({from_deep} from octave {deep}), slot agreement "
         f"{agreement:.6f}, p99 position delta {p99:.3g} px"
@@ -4359,6 +4435,7 @@ def main() -> int:
     _require(deep_launches == (deep_cfg.num_octaves, 1),
              "the 5-octave path did not launch the clamped octave kernel once")
     _require(deep_r1 == deep_cfg.num_octaves, "the 5-octave path did not refine on R1")
+    _require(deep_r2 == deep_cfg.num_octaves, "the 5-octave path did not select on R2")
     _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
              "the 5-octave path disagrees with its plain version")
     _require(bool(torch.isfinite(deep_keypoints.abs_x[deep_keypoints.valid]).all()),
@@ -4441,7 +4518,7 @@ def main() -> int:
         max_err, sample_err = max(max_err, multi_octave_err), max(sample_err, multi_sample_err)
         blur_err = max(blur_err, multi_blur_err)
     else:
-        multi_launches = (0, 0, 0, 0)
+        multi_launches = (0, 0, 0, 0, 0)
         _say("phase 20 (the sharded paths across cards, one NCCL rank a card) needs several "
              "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
     probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work, sample_work)
@@ -4505,6 +4582,24 @@ def main() -> int:
                 "library_ms": blur_library_ms,
                 "reach_ms": reach["blur_fused"][0],
                 "reach_by": reach["blur_fused"][1],
+            },
+            {
+                "name": "select_candidates",
+                "route": "cuda",
+                "source": CSRC + "select.cu",
+                "replaces": None,
+                "launches": detect_r2 + describe_launches["select_candidates"] + per_octave_r2
+                + deep_r2 + slam_launches[4] + stream_launches[4]
+                + surface_launches[4] + shard_launches[4] + blur_path_launches[4]
+                + orbax_launches[4] + multi_launches[4] + bench_launches[4],
+                "max_abs_err": 0.0,
+                "ms": select_ms,
+                "plain_ms": select_plain_ms,
+                "bound_ms": select_bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+                "reach_ms": None,
+                "reach_by": None,
             },
             {
                 "name": "newton_ladder",

@@ -18,7 +18,9 @@ consumes:
 - the fused route: the octave kernel emits the scan as one packed plane per
   octave, 2 bits per trio (:func:`pack_extrema_codes` is its plain
   version), and :func:`select_refine_candidates` selects across trios in
-  one pass.
+  one pass: on the card through the hand-written selection kernels
+  (``kernels/select.py``, ``csrc/select.cu``), elsewhere through its tensor
+  code, their plain version (:func:`select_refine_candidates_reference`).
 
 Every function takes a leading batch axis.
 """
@@ -29,6 +31,8 @@ import torch
 
 from ..config import SiftConfig
 from ..core.types import Extrema, exact_scalar
+from ..utils.profile import count
+from .kernels import select as select_kernel
 
 
 def mask_dtype(n_trios: int) -> torch.dtype:
@@ -141,6 +145,14 @@ def first_k_set_indices(
     return torch.where(valid, idx, 0), valid, total
 
 
+def takes_kernel(packed: torch.Tensor, dog: torch.Tensor) -> bool:
+    """Whether :func:`select_refine_candidates` selects through the kernels:
+    a packed plane on a CUDA device with a float32 DoG on the same device.
+    Else the tensor code selects."""
+    return (packed.device.type == "cuda" and dog.device == packed.device
+            and dog.dtype == torch.float32)
+
+
 def select_refine_candidates(
     packed: torch.Tensor, dog: torch.Tensor, cfg: SiftConfig, capacity: int
 ) -> Extrema:
@@ -149,10 +161,12 @@ def select_refine_candidates(
     (background.js:433-436).
 
     ``packed``: ``(B, H, W)``; ``dog``: ``(B, D, H, W)``. Slot ``j`` holds
-    the ``(j+1)``-th set bit of the flattened ``(T, H, W)`` candidate
-    volume (:func:`first_k_set_indices`). Invalid slots are parked at ``(scale 1, y 1, x 1)`` with
-    ``value`` read from the DoG there. The per-trio counters are uncapped,
-    so candidates beyond capacity stay observable.
+    the ``(j+1)``-th code-1 pixel of the flattened ``(T, H, W)`` volume.
+    Invalid slots are parked at ``(scale 1, y 1, x 1)`` with ``value``
+    read from the DoG there. The per-trio counters are uncapped, so
+    candidates beyond capacity stay observable. On the route
+    :func:`takes_kernel` picks, counted in ``select.route.kernel`` or
+    ``select.route.plain`` with counters on (``utils/profile.py``).
     """
     b, h, w = packed.shape
     if h < 2 or w < 2:
@@ -160,6 +174,21 @@ def select_refine_candidates(
             f"select_refine_candidates: a {h}x{w} octave has no pixel (1, 1) "
             "to park invalid slots at; use fewer octaves for this image size"
         )
+    if not takes_kernel(packed, dog):
+        count("select.route.plain", 1)
+        return select_refine_candidates_reference(packed, dog, cfg, capacity)
+    count("select.route.kernel", 1)
+    return select_kernel.select_candidates(packed.contiguous(), dog.contiguous(), capacity)
+
+
+def select_refine_candidates_reference(
+    packed: torch.Tensor, dog: torch.Tensor, cfg: SiftConfig, capacity: int
+) -> Extrema:
+    """The tensor code of :func:`select_refine_candidates`, on any device
+    and dtype: the plain version of ``kernels/select.py::select_candidates``.
+    Slot ``j`` holds the ``(j+1)``-th set bit of the flattened code-1
+    volume (:func:`first_k_set_indices`)."""
+    b, h, w = packed.shape
     n_trios = cfg.dog_per_octave - 2
     plane = h * w
     codes = unpack_mask_codes(packed, n_trios)  # (B, T, H, W)

@@ -75,6 +75,12 @@ _SIGNATURES = {  # name: (argtypes, restype)
         [_PP, _PP, _IP, _FP, _I, _I, _I, _I, _IP, _I, _FP, _P, _P, _P, _P, _P],
         _I,
     ),
+    # packed, word_bytes, dog, batch, depth, h, w, capacity, n_tiles,
+    # scratch, y, x, s, value, valid, n_cand, n_low, stream
+    "sift_select_candidates": (
+        [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        _I,
+    ),
     # out, n, value, stream
     "sift_probe_write": ([_P, ctypes.c_longlong, ctypes.c_float, _P], _I),
     # src, dst, n, stream

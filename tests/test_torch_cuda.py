@@ -9,6 +9,8 @@ This file imports nothing of JAX, so it runs where jax is absent.
 """
 
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -24,11 +26,16 @@ from sift_scale_space_extrema_detection_tpu_torch.models.frontend import (
     build_pyramid_fused,
 )
 from sift_scale_space_extrema_detection_tpu_torch.ops import refine
+from sift_scale_space_extrema_detection_tpu_torch.ops.extrema import (
+    select_refine_candidates,
+    select_refine_candidates_reference,
+)
 from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import (
     blur_separable,
     kernel_radius,
 )
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import refine as refine_kernel
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import select as select_kernel
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import tiles
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import (
     blur_fused,
@@ -773,7 +780,7 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
                                        chip_smoke._make_batch(4, 96, 128), 2, ("fused",))
     launches, octave_err, sample_err, _ = chip_smoke._shard_bars(
         torch, chip_smoke._read_ranks(str(tmp_path), 2), spec, ref, "", "two gloo ranks")
-    assert launches == (8, 4, 0, 8)
+    assert launches == (8, 4, 0, 8, 8)
     assert octave_err == sample_err == 0.0
 
 
@@ -1098,6 +1105,115 @@ def test_the_kernel_route_casts_the_candidates_as_the_tensor_code_does(device):
     assert (want.reject_reason >= 0).any()
     for field in dataclasses.fields(want):
         assert torch.equal(getattr(got, field.name), getattr(want, field.name)), field.name
+
+
+# --- the selection kernels against their plain version ------------------------
+
+
+def _code_plane(seed, b, n_trios, h, w, device, density=0.01, fill=None, top_twos=False):
+    """A packed plane ``(b, h, w)`` of random 2-bit codes (1 and 2, a few
+    3s, which count as neither) and a float32 DoG ``(b, T + 2, h, w)`` of
+    noise, on the card. ``fill=1`` sets code 1 in every trio of every
+    interior pixel, ``fill=0`` leaves the plane empty; ``top_twos`` sets
+    code 2 on a tenth of the top trio's pixels, which makes the words
+    negative."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((b, n_trios, h, w), generator=gen, device=device)
+    codes = ((u < density).long() + (u < 0.4 * density).long()
+             + (u < 0.05 * density).long())  # 1, then 2, then 3
+    if fill is not None:
+        codes.zero_()
+        if fill == 1 and h > 2 and w > 2:
+            codes[..., 1:-1, 1:-1] = 1
+    if top_twos:
+        codes[:, -1] = torch.where(u[:, -1] > 0.9, 2, codes[:, -1])
+    shifts = 2 * torch.arange(n_trios, device=device)[:, None, None]
+    word = (codes << shifts).sum(1)
+    bits = 16 if n_trios <= 8 else 32
+    word = torch.where(word >= 2 ** (bits - 1), word - 2**bits, word)
+    dtype = torch.int16 if bits == 16 else torch.int32
+    dog = torch.randn((b, n_trios + 2, h, w), generator=gen, device=device)
+    return word.to(dtype), dog
+
+
+def _photo_cfg():
+    path = pathlib.Path(__file__).resolve().parents[1] / "port_bench/configs/colmap-3200.json"
+    return port.SiftConfig(**json.loads(path.read_text())["sift"])
+
+
+# (kind, batch, trios or scales, frame or plane size, extra): the benchmark
+# cells' batches through the real pyramid, every octave, at 64 frames and at
+# one (tum 480x640 at 5 scales, kitti 384x1280 at 3, the photo cell at
+# COLMAP's settings, whose 16-photo octave-0 DoG holds 2.18 G elements);
+# odd planes; an empty plane and one whose every interior pixel is a
+# candidate; int16 at 8 trios and int32 at 9 and 16 with code 2 in the top
+# trio (negative words).
+SELECT_CASES = {
+    "tum-b64": ("frames", 64, 5, (480, 640), None),
+    "tum-b1": ("frames", 1, 5, (480, 640), None),
+    "kitti-b64": ("frames", 64, 3, (384, 1280), None),
+    "kitti-b1": ("frames", 1, 3, (384, 1280), None),
+    "photo-b1": ("photo", 1, 3, (2133, 3200), None),
+    "photo-b16": ("photo", 16, 3, (2133, 3200), None),
+    "odd-3x3": ("codes", 2, 3, (3, 3), dict(density=0.5)),
+    "odd-5x7": ("codes", 3, 5, (5, 7), dict(density=0.3)),
+    "odd-2133x3200": ("codes", 2, 3, (2133, 3200), dict(density=1e-3)),
+    "empty": ("codes", 4, 5, (480, 640), dict(fill=0)),
+    "all-interior": ("codes", 2, 5, (96, 128), dict(fill=1)),
+    "int16-8-trios": ("codes", 3, 8, (100, 150), dict(top_twos=True)),
+    "int32-9-trios": ("codes", 3, 9, (100, 150), dict(top_twos=True)),
+    "int32-16-trios": ("codes", 2, 16, (64, 96), dict(top_twos=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_selection_kernel_matches_plain_version_bit_for_bit(device, case):
+    """Every Extrema field and both uncapped counters of the kernels and
+    of the tensor code on the card, equal to the bit, at the refinement
+    capacity (frames), at capacity 1, below each image's total, at the
+    largest total and far above it (parking); then the public route."""
+    kind, b, trios, (h, w), extra = SELECT_CASES[case]
+    if kind == "codes":
+        cfg = port.SiftConfig(scales_per_octave=trios)
+        packed, dog = _code_plane(13, b, trios, h, w, device, **extra)
+        planes = [(packed, dog, None)]
+    else:
+        cfg = _photo_cfg() if kind == "photo" else port.SiftConfig(
+            num_octaves=4, scales_per_octave=trios, max_keypoints_per_trio=512)
+        dogs, masks, _ = _pyramid(_card_frames(7, b, h, w, device), cfg, "fused",
+                                  emit_scales=False)
+        planes = [(m, d, cfg.refine_capacity(o)) for o, (d, m) in enumerate(zip(dogs, masks))]
+        if b == 16:
+            assert dogs[0].numel() > 2**31
+    seen_total = 0
+    for packed, dog, refine_cap in planes:
+        totals = select_refine_candidates_reference(packed, dog, cfg, 1).num_candidates.sum(-1)
+        most = int(totals.max())
+        seen_total += most
+        capacities = {1, max(1, int(totals.min()) // 2), max(most, 1), 4 * most + 64}
+        if refine_cap is not None:
+            capacities.add(refine_cap)
+        for capacity in sorted(capacities):
+            before = select_kernel.select_candidates.launches
+            got = select_kernel.select_candidates(packed, dog, capacity)
+            torch.cuda.synchronize()
+            assert select_kernel.select_candidates.launches == before + 1
+            want = select_refine_candidates_reference(packed, dog, cfg, capacity)
+            for field in dataclasses.fields(want):
+                g, wv = getattr(got, field.name), getattr(want, field.name)
+                assert g.dtype == wv.dtype and g.shape == wv.shape, (field.name, capacity)
+                assert torch.equal(g, wv), (field.name, capacity)
+            del got, want
+        with tracing(spans=False, counters=True) as session:
+            routed = select_refine_candidates(packed, dog, cfg, 4 * most + 64)
+        assert session.counters == {"select.route.kernel": 1}
+        assert torch.equal(routed.num_candidates.sum(-1), totals)
+    if case == "empty":
+        assert seen_total == 0
+    elif case == "all-interior":
+        assert seen_total == trios * (h - 2) * (w - 2)
+    else:
+        assert seen_total > 0
 
 
 def test_the_references_orbax_ba_state_restores_onto_the_card(device):

@@ -246,6 +246,27 @@ def test_the_kernel_route_counts_what_the_plain_route_counts():
             assert torch.equal(x, y)
 
 
+def _select_routes(images) -> dict:
+    """The selection route counters of one fused 4-octave detect batch."""
+    cfg = port.SiftConfig(num_octaves=4, max_keypoints_per_trio=64)
+    with tracing(spans=False, counters=True) as session:
+        port.detect_batched(images, cfg, device=images.device)
+    return {k: v for k, v in session.counters.items() if k.startswith("select.route.")}
+
+
+def test_a_fused_batch_on_the_cpu_selects_on_the_plain_route():
+    assert _select_routes(_frames(b=2)) == {"select.route.plain": 4}
+
+
+@pytest.mark.cuda
+def test_a_fused_batch_on_the_card_selects_on_the_kernel_route():
+    """On the card each octave's packed plane goes to the selection
+    kernels, once an octave, and none to the tensor code."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert _select_routes(_frames(b=2).to("cuda")) == {"select.route.kernel": 4}
+
+
 def test_the_session_state_is_back_off_after_an_error():
     with pytest.raises(RuntimeError):
         with tracing(counters=True):

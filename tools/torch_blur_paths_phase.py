@@ -39,8 +39,8 @@ def main() -> int:
     _build.load_kernels()
     t0 = time.perf_counter()
     launches, sample_err = chip_smoke._phase_blur_paths(torch, port, smi, torch.device("cuda", 0))
-    print(f"phase 18 {time.perf_counter() - t0:.1f} s, launches K1/K2/K3/R1 {launches}, K2 against "
-          f"its plain version {sample_err:.3g}", flush=True)
+    print(f"phase 18 {time.perf_counter() - t0:.1f} s, launches K1/K2/K3/R1/R2 {launches}, "
+          f"K2 against its plain version {sample_err:.3g}", flush=True)
     return 0
 
 
