@@ -6,15 +6,16 @@ It needs one CUDA device and ``nvcc``, and imports nothing of JAX.
 
 Phases (any failure exits non-zero and prints no result):
 
-Wherever a phase below zeroes and reads the launch counts of K1 (the
-fused octave), K2 (window sampling) and K3 (the blur), it zeroes and reads
-R1's (refinement's kernel) and R2's (selection's kernels, one count a
-call) beside them and holds them too. R1: one launch an octave of each
-frontend batch on the card (the frontend refines octave by octave), one a
-pool under ``unified_refine`` (all octaves) and ``refine_tail_pool``
-(octave 0, then the rest), none on tracks-only paths. R2: one an octave
-wherever K1 made the packed plane (the fused route selects from it), none
-on the scale-space paths. Phase 23's ranks report K1-K3 alone.
+Wherever a phase below counts launches, it takes a snapshot of the
+kernels' one record (``ops/kernels/_build.py``) before the work and holds
+each path kernel's launches since (``benchmarks.path_launches``) by name:
+K1 (the fused octave), K3 (the blur), R2 (selection's kernels, one count
+a call), R1 (refinement's kernel) and K2 (window sampling). R1: one launch
+an octave of each frontend batch on the card (the frontend refines octave
+by octave), one a pool under ``unified_refine`` (all octaves) and
+``refine_tail_pool`` (octave 0, then the rest), none on tracks-only paths.
+R2: one an octave wherever K1 made the packed plane (the fused route
+selects from it), none on the scale-space paths.
 
 1. device — CUDA present; the card's name and power limit; the TF32
    settings (the describe stages' histograms are float32 matrix products
@@ -84,11 +85,11 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     the same keypoint slots and reject codes, float fields within 1e-10.
 13. two views at full width — two 480×640 frames of one blob field (150
     blobs, rendered from a seed by ``utils/synthetic.py``) →
-    ``detect_and_describe_batched`` at the main configuration (all three
-    counts zeroed before and read after: the octave kernel launches exactly
-    once per octave, the sampling kernel twice, the blur kernel never; both
-    kernels equal their plain versions on these frames and this path's slots
-    within 1e-6, masks on >= 99.99 % of pixels, and the described result
+    ``detect_and_describe_batched`` at the main configuration (its launches
+    counted: the octave kernel launches exactly once per octave, the
+    sampling kernel twice, the blur kernel never; both kernels equal their
+    plain versions on these frames and this path's slots within 1e-6,
+    masks on >= 99.99 % of pixels, and the described result
     equals the plain path's) → ``match_descriptors`` on all 1,800 ×
     1,800 pair slots → ``backproject`` → ``estimate_essential_ransac`` (512
     hypotheses, 2 px) → ``triangulate_midpoint`` → ``pnp_dlt`` +
@@ -114,8 +115,8 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     landmarks and ATE < 0.06; the same tracks with ``device="cpu"`` within
     0.02 ATE. (b) Full width, ``benchmarks/slam_bench.py``'s default: 40 ×
     480×640 uint16 frames of a dolly past a blob field, frontend chunks of
-    16, re-association over 2 keyframes: the three counts zeroed before and
-    read after (K1 9, K2 6, K3 0), a finite trajectory, more than 100
+    16, re-association over 2 keyframes: its launches counted (K1 9, K2 6,
+    K3 none), a finite trajectory, more than 100
     landmarks, the ATE printed (a reading), a second run bit-equal; both
     kernels equal their plain versions on the first chunk. (c) The card's
     described keypoints through the association on the card and with
@@ -127,7 +128,7 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     and room for 16,384 tracks, which SLAM solves: ``run_slam`` in float32
     on the card and with ``device="cpu"``, ATE < 0.06 on both and within
     0.02 of each other. (d) ``SlamSession`` over the same frames as (b): 7
-    provisional updates, K1 24, K2 16, K3 0, the ``mem://`` store empty after
+    provisional updates, K1 24, K2 16, K3 none, the ``mem://`` store empty after
     ``finalize``, the result bit-equal to (b)'s (hence its ATE within 0.02).
     (e) ``run_slam`` on (b)'s tracks stopped after the last frame of every
     tracking window into a ``mem://`` checkpoint and resumed: each bit-equal
@@ -138,12 +139,12 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
 16. the user surfaces, ``cli.main`` and ``evaluate.main`` in-process on the
     card. (a) The CLI at full width: one 480×640 frame of the bench recipe
     written as a PNG by the port's writer, 5 octaves × 3 scales, capacity
-    1024, ``--descriptors``: K1/K2/K3 launched 5/10/0 (one K1 launch in its
-    clamped mode); its ``keypoints.json`` against the same command with
+    1024, ``--descriptors``: K1 launched 5 times (once in its clamped
+    mode), K2 10, K3 never; its ``keypoints.json`` against the same command with
     ``--device cpu`` (slot agreement >= 0.999 by (octave, scale, row,
     column), p99 position delta <= 0.1 px) and its ``descriptors.npz``
     (rows matched within 0.1 px and 1e-3 rad on >= 99.9 %, min cosine >=
-    0.999). ``--blur cuda`` launches K3 once per blurred scale (0/10/26) at
+    0.999). ``--blur cuda`` launches K3 once per blurred scale (26; K2 10) at
     the same bars; ``--blur matmul`` runs with TF32 off (its scale space
     within 1e-5 of the tap loop's) and is refused with it on. (b) One
     1241×376 KITTI frame through the CLI as it is and padded to 1280×384 by
@@ -156,17 +157,17 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     frame decoded by the native loader, equal to the written pixels / 255;
     the trajectory bit-equal to ``run_slam_from_images`` on the same decoded
     and padded frames in this process; 200 rows read back from the
-    trajectory file; K1/K2/K3 launched 52/26/0; K1 and K2 against their
+    trajectory file; K1 launched 52 times, K2 26, K3 never; K1 and K2 against their
     plain versions on the first 16 frames evaluate handed to SLAM, with its
     SiftConfig (4 octaves, capacity 512; phase 15's bars). Load seconds,
     SLAM frames/s, peak device memory and ATE / RPE / RRE are printed as
     readings: the defaults lose both sequences, in both packages. Then
     ``evaluate`` on the TUM sequence's first 40 frames with ``--match-gate
     30 --reassoc 2 --max-tracks 16384``, which SLAM solves, on the card and
-    with ``--device cpu``: launches 12/6/0, both ATEs < 0.06 and within 0.02
+    with ``--device cpu``: K1 12 launches, K2 6, both ATEs < 0.06 and within 0.02
     of each other (phase 15 (c)'s bars). Last, on the card only, its first
     80 frames with ``--blur separable --match-gate 30 --reassoc 2
-    --max-tracks 65536``: launches 0/10/0 and a finite trajectory of 80
+    --max-tracks 65536``: K2 10 launches, K1 none, and a finite trajectory of 80
     rows; landmarks, ATE, RPE and RRE are readings (both packages lose the
     dolly there; ``tools/torch_dolly_parity.py`` reads the CPU and the JAX
     package beside it).
@@ -176,25 +177,25 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     matching, the sharded BA and composed SLAM and streaming with a mesh,
     each equal to its unsharded run; (b) two gloo ranks spawned on the card
     (``_shard_rank``, held by ``_shard_bars`` as phase 20's ranks are): the
-    frontend bit-equal to each 32-frame share's single-device run, 4/2/0 a
-    rank, K1/K2 equal to their plain versions; the BA on phase 14's dense
+    frontend bit-equal to each 32-frame share's single-device run, K1 4
+    launches and K2 2 a rank, K1 and K2 equal to their plain versions; the BA on phase 14's dense
     problem, ranks and reruns bit-equal, within 1e-3 of world 1; config[3]'s
     orbit with every BA sharded, at phase 15's bars.
 18. the blur-by-blur frontend and the pooled refinement
-    (``_phase_blur_paths``), every part's three counts zeroed before it and
-    read after it. (a) ``detect_batched(blur="cuda")`` on the 64-frame batch
-    at 4 octaves × 5 scales: K1/K2/K3 0/0/29, every field and each octave's
+    (``_phase_blur_paths``), every part's launches counted. (a)
+    ``detect_batched(blur="cuda")`` on the 64-frame batch at 4 octaves × 5
+    scales: K3 29 launches, K1 and K2 none, every field and each octave's
     per-trio ``Extrema`` equal to ``blur="separable"`` on the card, the first
     8 frames against ``device="cpu"`` (slot agreement >= 0.999, p99 <= 0.1
     px); ms, frames/s, peak memory and synchronised stages. (b)
-    ``detect_and_describe_batched(blur="cuda")``: 0/2/29, equal to
+    ``detect_and_describe_batched(blur="cuda")``: K2 2, K3 29, equal to
     ``"separable"``, phase 6's bars against the CPU, K2 against its plain
     version on this path's slots. (e) the data-parallel frontend with
     ``blur="cuda"`` at world 1 on NCCL, equal to (b). (g) ``detect_batched``
     with ``unified_refine`` and then ``refine_tail_pool``: card against CPU,
     bit-equal reruns, the slots whose fate the pool moved. (c)
-    ``run_slam_from_images(blur="cuda")`` on phase 15's gated sequence:
-    0/6/48 (3 chunks × 16 blurs), bit-equal to ``"separable"``, phase 15
+    ``run_slam_from_images(blur="cuda")`` on phase 15's gated sequence: K2
+    6, K3 48 (3 chunks × 16 blurs), bit-equal to ``"separable"``, phase 15
     (c)'s bars on ``run_slam`` card against CPU. (d) ``SlamSession(blur=
     "cuda")`` bit-equal to (c). (f) ``evaluate --blur pallas`` on phase 16's
     40-frame TUM cut: equal to ``--blur cuda``, card against ``--device cpu
@@ -208,7 +209,7 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     npz twin; the bytes read, seconds and MB/s. (b) ``run_slam(resume=True)``
     on the card from copies of the orbax state and of its npz twin: the two
     trajectories bit-equal, more than 200 valid landmarks, ATE < 0.08 and
-    within 0.02 of the JAX package's resumed ATE; K1/K2/K3 0/0/0 (tracks
+    within 0.02 of the JAX package's resumed ATE; no launch (tracks
     only); seconds and frames/s beside phase 15 (g)'s uninterrupted ATE.
     (c) Nothing is caught: an unreadable fixture ends the script; none of
     jax, orbax, tensorstore or zstandard was loaded, and the committed
@@ -221,9 +222,10 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     CUDA first; the single-card references in this process on ``cuda:0``.
     (a) ``detect_and_describe_data_parallel`` on 4 × 64 × 480×640 frames
     with ``blur="fused"`` and ``"cuda"``: the gathered fields bit-equal to
-    the shares' ``detect_and_describe_batched``, K1/K2/K3 4/2/0 and 0/2/29 a
-    rank, each rank's outputs on its card before the gather, K1/K2 and K3
-    equal to their plain versions on its share (max abs diff 0), no rank
+    the shares' ``detect_and_describe_batched``, a rank's launches K1 4 and
+    K2 2, and K2 2 and K3 29, each rank's outputs on its card before the
+    gather, K1, K2 and K3 equal to their plain versions on its share (max
+    abs diff 0), no rank
     allocating on another's card; ms a step, frames/s, memory. (b)
     keyframe-sharded matching of 1,800 slots against 64 keyframes, bit-equal
     to the world-1 ``vmap(match_descriptors)``. (c) the sharded BA on phase
@@ -231,14 +233,14 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     bit-equal. (d) phase 15's gated sequence through ``run_slam_from_images
     (mesh=...)`` at ``dist_ba_min_landmarks`` 4096 and 0 (sharded BAs > 0),
     ATE within 0.02 of the single card's, ranks bit-equal; ``SlamSession``
-    within 0.02 of it; launches 3/2/0 a rank for each run and 24/16/0 for
-    the session. (e) config[3]'s orbit at threshold 0: ATE < 0.08 and
+    within 0.02 of it; K1 3 and K2 2 launches a rank for each run, K1 24
+    and K2 16 for the session. (e) config[3]'s orbit at threshold 0: ATE < 0.08 and
     within 0.02 of the single card's. (f) ``tools/torch_dryrun_multichip.py
     --world 4``. (g) ``detect_and_describe_batched(device="cuda:3")`` in this
     process: bit-equal to ``cuda:0``'s, nothing allocated on card 0.
 21. the card's probes (``_phase_probes``; K4-K7 of ``csrc/probes.cu``, which
     no other phase launches: their counts must be 0 here). (a) The entry
-    points as a user runs them, every count zeroed before and read after:
+    points as a user runs them, their launches counted:
     ``benchmarks.bw_probe --gb 1.0`` (write, copy and read of a 65,536 ×
     4,096 float32 buffer, and ``torch.full`` / ``x + 0.0``) and
     ``benchmarks.tap_probe`` at 256 and 8,192 rows; their JSON lines. (b)
@@ -261,7 +263,7 @@ on the scale-space paths. Phase 23's ranks report K1-K3 alone.
     DoG differences, K1's scan) over the measured f32 chain's rate.
 22. the port's measuring entry points (``_phase_benchmarks``; the modules
     of ``…_torch/benchmarks/``, each through its ``run`` at its script's
-    full default width, every count zeroed before the phase): ``bench`` (64
+    full default width, the phase's launches counted): ``bench`` (64
     × 480×640, K1 only); ``frontend_bench --stages --describe`` with
     ``--blur fused`` (K1, and K2 in the describe) and ``--blur cuda`` (K3,
     and K2 in the describe), K1's reach at phase 21's ceilings;
@@ -311,13 +313,16 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
 from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
     digest,
     host_ms,
+    path_launches,
     sync,
+    time_ms,
     torchrun_ranks,
 )
 from sift_scale_space_extrema_detection_tpu_torch.benchmarks.ba_bench import make_problem
@@ -336,6 +341,7 @@ from sift_scale_space_extrema_detection_tpu_torch.benchmarks.slam_bench import (
     render_sequence,
     to_uint16,
 )
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.refine import newton_ladder
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.select import select_candidates
 
@@ -433,34 +439,26 @@ def _say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _event_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls (the
-    host clock where there is no card: a CPU rehearsal's reading)."""
-    if not torch.cuda.is_available():
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return 1e3 * (time.perf_counter() - t0) / reps
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _fused_path(octaves: int, sampled: int = 0) -> Counter:
+    """The path kernels' launches of ``octaves`` octaves through the fused
+    frontend: K1, R2 and R1 once an octave, K2 ``sampled`` times."""
+    return Counter(fused_octave=octaves, select_candidates=octaves, newton_ladder=octaves,
+                   window_sample_pair=sampled)
 
 
 def _in_turns(torch, kernel, plain, kernel_reps: int, plain_reps: int):
     """``(kernel_ms, plain_ms, rounds)``: both warmed up, then timed in
-    turns plain/kernel/kernel/plain, each side the mean of its two rounds."""
+    turns plain/kernel/kernel/plain (``benchmarks.time_ms``: CUDA events on
+    the card, the host clock in a CPU rehearsal), each side the mean of its
+    two rounds."""
     kernel()
     plain()
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     rounds = [
-        _event_ms(torch, plain, plain_reps),
-        _event_ms(torch, kernel, kernel_reps),
-        _event_ms(torch, kernel, kernel_reps),
-        _event_ms(torch, plain, plain_reps),
+        time_ms(plain, plain_reps, dev),
+        time_ms(kernel, kernel_reps, dev),
+        time_ms(kernel, kernel_reps, dev),
+        time_ms(plain, plain_reps, dev),
     ]
     return (rounds[1] + rounds[2]) / 2, (rounds[0] + rounds[3]) / 2, rounds
 
@@ -511,7 +509,7 @@ def _turns_of(torch, fns: dict, reps: dict) -> dict:
         if torch.cuda.is_available():
             rounds[name].append(_held_ms(torch, fns[name], reps[name])[0])
         else:
-            rounds[name].append(_event_ms(torch, fns[name], reps[name]))
+            rounds[name].append(host_ms(fns[name], torch.device("cpu"), reps[name], warmup=0))
     return {name: sum(r) / len(r) for name, r in rounds.items()}
 
 
@@ -645,15 +643,6 @@ def _circle_graph(rng, n: int, drift: float = 0.03):
     return np.stack(est_r), np.stack(est_t), src, dst, np.stack(rel_r), np.stack(rel_t)
 
 
-def _sync(torch, dev) -> None:
-    sync(dev)
-
-
-def _host_ms(torch, fn, reps: int, dev=None) -> float:
-    """``benchmarks.host_ms`` on the card, unless ``dev`` is another device."""
-    return host_ms(fn, torch.device("cuda") if dev is None else dev, reps)
-
-
 def _phase_oracle_leg(torch, port) -> None:
     """Phase 12: the float64 ``blur="exact"`` leg on the card against the
     same calls on the CPU."""
@@ -746,7 +735,7 @@ def _kernels_vs_plain(torch, frames, cfg, described):
     plain_described = describe_compact(
         plain_stacks, plain_keypoints, cfg, sample_fn=window_sample_pair_reference
     )
-    _sync(torch, frames.device)
+    sync(frames.device)
     slots_same = _slot_agreement(described, plain_described)
     both = described.valid & plain_described.valid
     described_err = (described.descriptor - plain_described.descriptor)[both].abs().max().item()
@@ -759,9 +748,6 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     against the same descriptors through ``device="cpu"``. The octave and
     sampling kernels are held against their plain versions on these frames
     and their slots; returns their largest differences ``(octave, sampling)``."""
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.ops.ransac import _eight_point_nullvec
     from sift_scale_space_extrema_detection_tpu_torch.sfm import geometry as geo
     from sift_scale_space_extrema_detection_tpu_torch.sfm.pnp import pnp_dlt, solve_pnp
@@ -774,16 +760,13 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     k_cpu = torch.from_numpy(k_np).float()
     thresh = RANSAC_PX / TWO_VIEW_FOCAL
 
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     described = port.detect_and_describe_batched(frames, cfg)
     torch.cuda.synchronize()
-    launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches, select_candidates.launches)
+    launches = path_launches(before)
     n_pairs = cfg.descriptor_pair_capacity()
-    _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
-             f"the two-view path launched the octave, sampling, blur, refinement and "
-             f"selection kernels {launches} times")
+    _require(launches == _fused_path(cfg.num_octaves, 2),
+             f"the two-view path launched {dict(launches)}")
     _require(tuple(described.descriptor.shape) == (2, n_pairs, 128),
              f"two-view descriptor shape {tuple(described.descriptor.shape)}")
 
@@ -834,7 +817,7 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     )
     _say(
         f"two views: 2x{HEIGHT}x{WIDTH} frames of {TWO_VIEW_BLOBS} blobs, kernel launches "
-        f"octave {launches[0]} sampling {launches[1]} blur {launches[2]}; valid descriptors "
+        f"{dict(launches)}; valid descriptors "
         f"{described.valid.sum(dim=1).tolist()} of {n_pairs} pair slots, matches "
         f"{int(matches.valid.sum())}, RANSAC ({RANSAC_HYPOTHESES} hypotheses, {RANSAC_PX} px) "
         f"inliers {int(result.num_inliers)}; rotation error {rot_err:.4f} deg, translation "
@@ -882,20 +865,21 @@ def _phase_two_view(torch, port, smi) -> tuple[float, float]:
     desc, valid = described.descriptor, described.valid
     generator = torch.Generator().manual_seed(0)
     rows = torch.randn(RANSAC_HYPOTHESES, 8, 9, device=rays1.device)
-    match_ms = _host_ms(
-        torch, lambda: port.match_descriptors(desc[0], valid[0], desc[1], valid[1]), 10
+    card = rays1.device
+    match_ms = host_ms(
+        lambda: port.match_descriptors(desc[0], valid[0], desc[1], valid[1]), card, 10
     )
-    ransac_ms = _host_ms(
-        torch,
+    ransac_ms = host_ms(
         lambda: port.estimate_essential_ransac(
             rays1, rays2, matches.valid, generator, num_hypotheses=RANSAC_HYPOTHESES,
             inlier_threshold=thresh,
         ),
+        card,
         5,
     )
-    svd_ms = _host_ms(torch, lambda: _eight_point_nullvec(rows), 5)
-    dlt_ms = _host_ms(torch, lambda: pnp_dlt(tri, uv2[inl], ok, k_dev), 5)
-    pnp_ms = _host_ms(torch, lambda: solve_pnp(tri, uv2[inl], ok, k_dev, r0, t0), 5)
+    svd_ms = host_ms(lambda: _eight_point_nullvec(rows), card, 5)
+    dlt_ms = host_ms(lambda: pnp_dlt(tri, uv2[inl], ok, k_dev), card, 5)
+    pnp_ms = host_ms(lambda: solve_pnp(tri, uv2[inl], ok, k_dev, r0, t0), card, 5)
     _say(
         f"timing two views: match_descriptors {n_pairs}x{n_pairs} {match_ms:.3f} ms, "
         f"estimate_essential_ransac {ransac_ms:.2f} ms (its batched SVD of "
@@ -959,7 +943,7 @@ def _phase_solvers(torch, port, smi) -> None:
         if solver == "dense":
             _, scatter_cost = run(assembly="scatter")
             rel = abs(scatter_cost.item() - cost.item()) / cost.item()
-            scatter_ms = _host_ms(torch, lambda: run(assembly="scatter"), 1)
+            scatter_ms = host_ms(lambda: run(assembly="scatter"), torch.device("cuda"), 1)
             _say(
                 f"bundle adjustment (dense, scatter assembly): final cost "
                 f"{scatter_cost.item():.1f}, {rel:.3g} relative of the sorted cost; "
@@ -981,8 +965,8 @@ def _phase_solvers(torch, port, smi) -> None:
     graph_iterations = 20
     opt_r, opt_t, cost = optimize_pose_graph(rots, ts, edges, graph_iterations)
     torch.cuda.synchronize()
-    graph_ms = _host_ms(
-        torch, lambda: optimize_pose_graph(rots, ts, edges, graph_iterations), 1
+    graph_ms = host_ms(
+        lambda: optimize_pose_graph(rots, ts, edges, graph_iterations), torch.device("cuda"), 1
     )
     _say(
         f"pose graph: {n}-node drifted loop, {len(src)} edges, {graph_iterations} LM iterations: "
@@ -1080,7 +1064,7 @@ def _orbit_sequence(synthetic, frames=ORBIT_FRAMES):
 def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=HEIGHT):
     """Phase 15: images → trajectory, batch and streaming, on ``dev``.
     Returns ``(batch launches, streaming launches, octave_err, sample_err,
-    refs)``; the launches are (K1, K2, K3, R1, R2) counts, ``refs`` the readings
+    refs)``; the launches by path kernel, ``refs`` the readings
     phase 17 holds its sharded runs against: the gated sequence's ATE
     (``solved_ate``) and config[3]'s ATE and BA count (``orbit_ate``,
     ``orbit_bas``)."""
@@ -1090,19 +1074,8 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
         build_tracks_from_described,
         describe_frames,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint, synthetic
     from sift_scale_space_extrema_detection_tpu_torch.utils.profile import StageProfile
-
-    def zero():
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = select_candidates.launches = 0
-
-    def counts():
-        return (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches, select_candidates.launches)
 
     def finite(result):
         return bool(np.isfinite(result.rotations).all() & np.isfinite(result.translations).all())
@@ -1113,21 +1086,22 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     images, gt_r, gt_t, k_mat = _test_sequence(synthetic)
     small_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
     small_slam = port.SlamConfig(ba_interval=3, ba_window=6)
-    zero()
+    before = launch_counts()
     pixels, visible, _ = port.build_tracks_from_images(images, small_cfg, k_mat, device=dev)
     result = port.run_slam(pixels, visible, k_mat, small_slam, device=dev)
-    small_launches = counts()
+    small_launches = path_launches(before)
     ate = port.evaluate_ate(result, gt_r, gt_t, device=dev)
     ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, small_slam, device="cpu"),
                                 gt_r, gt_t, device="cpu")
     _say(
         f"SLAM, the reference's bar: 8 x 320x240 frames, build_tracks_from_images + run_slam: "
-        f"launches {small_launches}, valid landmarks {int(result.landmark_valid.sum())} (bar > "
+        f"launches {dict(small_launches)}, valid landmarks {int(result.landmark_valid.sum())} "
+        f"(bar > "
         f"{SLAM_REF_LANDMARKS}), ATE {ate:.4f} (bar < {SLAM_REF_ATE}); the same tracks with "
         f"device='cpu': ATE {ate_cpu:.4f} (bar: within {SLAM_ATE_GAP})"
     )
-    _require(small_launches[0] > 0 and small_launches[3] > 0
-             and small_launches[4] == small_launches[0],
+    _require(small_launches["fused_octave"] > 0 and small_launches["newton_ladder"] > 0
+             and small_launches["select_candidates"] == small_launches["fused_octave"],
              "the SLAM path did not launch the octave, refinement and selection kernels")
     _require(int(result.landmark_valid.sum()) > SLAM_REF_LANDMARKS, "SLAM: too few landmarks")
     _require(ate < SLAM_REF_ATE, "SLAM: ATE above the reference's bar")
@@ -1145,15 +1119,15 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
                                          frontend_chunk=SLAM_CHUNK, device=dev, **kw)
 
     batch()  # warm-up
-    _sync(torch, dev)
+    sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    zero()
+    before = launch_counts()
     t0 = time.perf_counter()
     result = batch()
-    _sync(torch, dev)
+    sync(dev)
     seconds = time.perf_counter() - t0
-    launches = counts()
+    launches = path_launches(before)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     ate_batch = port.evaluate_ate(result, gt_r, gt_t, device=dev)
     again = batch()
@@ -1164,15 +1138,14 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     _say(
         f"SLAM batch: {frames} x {height}x{width} uint16 frames, run_slam_from_images "
         f"(ba_interval 5, ba_window 8, reassoc_window 2, chunks of {SLAM_CHUNK}): launches "
-        f"K1/K2/K3/R1/R2 {launches} (expected "
-        f"{(3 * chunks, 2 * chunks, 0, 3 * chunks, 3 * chunks)}), valid "
+        f"{dict(launches)} (expected {dict(_fused_path(3 * chunks, 2 * chunks))}), valid "
         f"landmarks "
         f"{n_landmarks} of {result.points.shape[0]} tracks, {result.num_observations} "
         f"observations, ATE {ate_batch:.4f} (a reading: the reference's spread 0.05-1.58), "
         f"second run bit-equal {same_bits}"
     )
-    _require(launches == (3 * chunks, 2 * chunks, 0, 3 * chunks, 3 * chunks),
-             f"the SLAM batch path launched K1/K2/K3/R1/R2 {launches} times")
+    _require(launches == _fused_path(3 * chunks, 2 * chunks),
+             f"the SLAM batch path launched {dict(launches)}")
     _require(finite(result), "SLAM batch: the trajectory is not finite")
     _require(n_landmarks > SLAM_MIN_LANDMARKS, "SLAM batch: too few landmarks")
     _require(same_bits, "SLAM batch: two runs differ")
@@ -1242,7 +1215,7 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     stored = set(checkpoint._MEM_STORE)
     sess = port.SlamSession(k_mat, sift_cfg, slam_cfg, reassoc_window=recipe["reassoc_window"],
                             device=dev)
-    zero()
+    before = launch_counts()
     step_ms = []
     for image in images:
         t0 = time.perf_counter()
@@ -1250,7 +1223,7 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
         if update is not None:
             step_ms.append(1e3 * (time.perf_counter() - t0))
     streamed = sess.finalize()
-    stream_launches = counts()
+    stream_launches = path_launches(before)
     ate_stream = port.evaluate_ate(streamed, gt_r, gt_t, device=dev)
     stream_same = np.array_equal(streamed.rotations, result.rotations) and np.array_equal(
         streamed.translations, result.translations
@@ -1260,16 +1233,16 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     calls = steps + ((frames - start) % win != 0)
     _say(
         f"SLAM streaming: SlamSession over the same {frames} frames: {len(step_ms)} provisional "
-        f"updates (expected {steps}), launches K1/K2/K3/R1/R2 {stream_launches} (expected "
-        f"{(3 * calls, 2 * calls, 0, 3 * calls, 3 * calls)}), after finalize bit-equal to the "
+        f"updates (expected {steps}), launches {dict(stream_launches)} (expected "
+        f"{dict(_fused_path(3 * calls, 2 * calls))}), after finalize bit-equal to the "
         f"batch run "
         f"{stream_same}, "
         f"ATE {ate_stream:.4f} against batch {ate_batch:.4f} (bar: within {SLAM_ATE_GAP}); "
         f"mem:// store empty again {set(checkpoint._MEM_STORE) == stored}"
     )
     _require(len(step_ms) == steps, "SLAM streaming: wrong number of provisional updates")
-    _require(stream_launches == (3 * calls, 2 * calls, 0, 3 * calls, 3 * calls),
-             f"the streaming path launched K1/K2/K3/R1/R2 {stream_launches} times")
+    _require(stream_launches == _fused_path(3 * calls, 2 * calls),
+             f"the streaming path launched {dict(stream_launches)}")
     _require(finite(streamed), "SLAM streaming: the trajectory is not finite")
     _require(abs(ate_stream - ate_batch) < SLAM_ATE_GAP, "SLAM streaming: ATE far from batch")
     _require(stream_same, "SLAM streaming: the result differs from the batch run's")
@@ -1315,10 +1288,10 @@ def _phase_slam(torch, port, smi, dev, frames=SLAM_FRAMES, width=WIDTH, height=H
     port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, device=dev)  # warm-up
     read, restore = _count_bas(slam_module)
     try:
-        _sync(torch, dev)
+        sync(dev)
         t0 = time.perf_counter()
         orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat, orbit_cfg, device=dev)
-        _sync(torch, dev)
+        sync(dev)
         orbit_seconds = time.perf_counter() - t0
     finally:
         orbit_bas = read()[0]
@@ -1360,7 +1333,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     rank spawned on the same ``dev``: the frontend, the BA and config[3]'s
     orbit (:func:`_shard_rank`, held by :func:`_shard_bars`, as phase 20's
     ranks are). ``refs``: phase 15's readings. Returns
-    ``(launches, octave_err, sample_err)``: the (K1, K2, K3, R1, R2) launches of the
+    ``(launches, octave_err, sample_err)``: the path kernels' launches of the
     sharded main paths ((a) and every rank of (b)) and the kernels' largest
     differences from their plain versions on them."""
     import dataclasses
@@ -1373,9 +1346,6 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
 
     from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
     from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.parallel import (
         detect_and_describe_data_parallel,
         distributed_bundle_adjust,
@@ -1386,19 +1356,6 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import bundle_adjust
 
     on_card = dev.type == "cuda"
-    total = [0, 0, 0, 0, 0]
-
-    def zero():
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = select_candidates.launches = 0
-
-    def counts():
-        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches, select_candidates.launches)
-        for i, n in enumerate(got):
-            total[i] += n
-        return got
-
     width, height = size
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_sharding")
     shutil.rmtree(work, ignore_errors=True)
@@ -1413,35 +1370,34 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
 
         # (a) the data-parallel frontend on the main-path batch.
         detect_and_describe_data_parallel(images_cpu, cfg, mesh)  # warm-up
-        _sync(torch, dev)
-        zero()
+        sync(dev)
+        start = launch_counts()
         got = detect_and_describe_data_parallel(images_cpu, cfg, mesh)
-        _sync(torch, dev)
-        launches = counts()
+        sync(dev)
+        launches = path_launches(start)
         want = port.detect_and_describe_batched(images_cpu, cfg, device=dev)
         same = all(torch.equal(a, want_field) for a, want_field in
                    zip(_described_fields(got).values(), _described_fields(want).values()))
-        dp_ms = _host_ms(torch, lambda: detect_and_describe_data_parallel(images_cpu, cfg, mesh),
-                         3, dev)
-        plain_path_ms = _host_ms(torch, lambda: port.detect_and_describe_batched(
-            images_cpu, cfg, device=dev), 3, dev)
+        dp_ms = host_ms(lambda: detect_and_describe_data_parallel(images_cpu, cfg, mesh), dev, 3)
+        plain_path_ms = host_ms(lambda: port.detect_and_describe_batched(
+            images_cpu, cfg, device=dev), dev, 3)
         octave_err, masks_same, sample_err, stage_shapes, slots_same, described_err = (
             _kernels_vs_plain(torch, _as_unit_float(images_cpu.to(dev)), cfg, got)
         )
         _say(
             f"sharding (a), world 1 ({dist.get_backend()}): detect_and_describe_data_parallel "
-            f"{batch}x{height}x{width}: launches K1/K2/K3/R1/R2 {launches} (expected "
-            f"{(cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves)}), every field equal to "
-            f"detect_and_describe_batched's "
-            f"{same}; K1/K2 vs plain on its inputs: DoG and stacks max abs diff {octave_err:.3g}, "
+            f"{batch}x{height}x{width}: launches {dict(launches)} (expected "
+            f"{dict(_fused_path(cfg.num_octaves, 2))}), every field equal to "
+            f"detect_and_describe_batched's {same}; K1 and K2 vs plain on its inputs: DoG and "
+            f"stacks max abs diff {octave_err:.3g}, "
             f"masks equal on {100 * masks_same:.4f} % of pixels, window samples {stage_shapes} "
             f"max abs diff {sample_err:.3g}, slot agreement {slots_same:.6f}, descriptors max abs "
             f"diff {described_err:.3g}; {dp_ms:.2f} ms a batch (detect_and_describe_batched "
             f"{plain_path_ms:.2f} ms, a reading) [{smi}]"
         )
         if on_card:
-            _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
-                     f"the data-parallel frontend launched K1/K2/K3/R1/R2 {launches} times")
+            _require(launches == _fused_path(cfg.num_octaves, 2),
+                     f"the data-parallel frontend launched {dict(launches)}")
         _require(same, "the data-parallel frontend differs from detect_and_describe_batched")
         _require(max(octave_err, sample_err, described_err) <= MAX_ABS_ERR,
                  "sharding: a kernel differs from its plain version")
@@ -1475,8 +1431,8 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
         again, cost_again = distributed_bundle_adjust(state, obs, mesh,
                                                       num_iterations=BA_ITERATIONS)
-        ba_ms = _host_ms(torch, lambda: distributed_bundle_adjust(
-            state, obs, mesh, num_iterations=BA_ITERATIONS), 1, dev) / BA_ITERATIONS
+        ba_ms = host_ms(lambda: distributed_bundle_adjust(
+            state, obs, mesh, num_iterations=BA_ITERATIONS), dev, 1) / BA_ITERATIONS
         rel = abs(cost.item() - single_cost.item()) / single_cost.item()
         rms = float(torch.sqrt(2.0 * cost / (c * opc)))
 
@@ -1509,25 +1465,25 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
             n_ba = read()[0]
             restore()
         ate_unsharded = port.evaluate_ate(unsharded, gt_r, gt_t, device=dev)
-        zero()
+        start = launch_counts()
         read, restore = _count_bas(slam_module)
         try:
             t0 = time.perf_counter()
             sharded = port.run_slam_from_images(images, k_mat, sift_cfg, sharded_cfg, mesh=mesh,
                                                 frontend_chunk=SLAM_CHUNK, device=dev, **track)
-            _sync(torch, dev)
+            sync(dev)
             slam_seconds = time.perf_counter() - t0
         finally:
             slam_bas = read()
             restore()
-        slam_launches = counts()
+        slam_launches = path_launches(start)
         ate = port.evaluate_ate(sharded, gt_r, gt_t, device=dev)
         want_slam, want_stream = _slam_launches(recipe, slam_frames, 1)
         _say(
             f"sharding (a): run_slam_from_images(mesh=...) on phase 15's gated sequence "
             f"({slam_frames} x {height}x{width}, {SLAM_MATCH_GATE_PX:g} px gate, "
-            f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches K1/K2/K3/R1/R2 "
-            f"{slam_launches} (expected {want_slam}), BAs single/sharded "
+            f"{SLAM_MAX_TRACKS} tracks), dist_ba_min_landmarks=0: launches "
+            f"{dict(slam_launches)} (expected {dict(want_slam)}), BAs single/sharded "
             f"{slam_bas} (the run without a mesh: {n_ba} BAs), valid landmarks "
             f"{int(sharded.landmark_valid.sum())}, ATE {ate:.4f} (bars: < {SLAM_REF_ATE}, within "
             f"{SLAM_ATE_GAP} of phase 15's {refs['solved_ate']:.4f}; without a mesh here "
@@ -1536,7 +1492,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         )
         if on_card:
             _require(slam_launches == want_slam,
-                     f"the sharded SLAM path launched K1/K2/K3/R1/R2 {slam_launches} times")
+                     f"the sharded SLAM path launched {dict(slam_launches)}")
         _require(slam_bas == (0, n_ba) and n_ba > 0, "not every BA of the run was sharded")
         _require(np.isfinite(sharded.translations).all(), "sharded SLAM: not finite")
         _require(ate < SLAM_REF_ATE, "sharded SLAM: ATE above the bar")
@@ -1545,7 +1501,7 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
 
         # The streaming session with the same mesh: the sharded batch run's
         # result, bit for bit.
-        zero()
+        start = launch_counts()
         read, restore = _count_bas(slam_module)
         try:
             sess = port.SlamSession(k_mat, sift_cfg, sharded_cfg, mesh=mesh, device=dev,
@@ -1556,17 +1512,17 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
         finally:
             stream_bas = read()
             restore()
-        stream_launches = counts()
+        stream_launches = path_launches(start)
         stream_same = np.array_equal(streamed.rotations, sharded.rotations) and np.array_equal(
             streamed.translations, sharded.translations)
         _say(
-            f"sharding (a): SlamSession(mesh=...) over the same frames: launches K1/K2/K3/R1/R2 "
-            f"{stream_launches} (expected {want_stream}), BAs single/sharded "
+            f"sharding (a): SlamSession(mesh=...) over the same frames: launches "
+            f"{dict(stream_launches)} (expected {dict(want_stream)}), BAs single/sharded "
             f"{stream_bas}, bit-equal to the sharded batch run {stream_same}"
         )
         if on_card:
             _require(stream_launches == want_stream,
-                     f"the sharded session launched K1/K2/K3/R1/R2 {stream_launches} times")
+                     f"the sharded session launched {dict(stream_launches)}")
         _require(stream_bas[0] == 0 and stream_bas[1] > 0, "the session's BAs were not sharded")
         _require(stream_same, "the sharded session differs from the sharded batch run")
     finally:
@@ -1592,12 +1548,11 @@ def _phase_sharding(torch, port, smi, dev, refs, batch=BATCH, size=(WIDTH, HEIGH
     mp.spawn(_shard_rank, args=(work,), nprocs=world)
     _say(f"sharding (b): {world} gloo ranks spawned on {dev}, ran in "
          f"{time.perf_counter() - t0:.1f} s")
-    launches, rank_octave_err, rank_sample_err, _ = _shard_bars(
+    rank_launches, rank_octave_err, rank_sample_err, _ = _shard_bars(
         torch, _read_ranks(work, world), spec, ref, smi, f"sharding (b), world {world}")
-    for i, n in enumerate(launches):
-        total[i] += n
     shutil.rmtree(work, ignore_errors=True)
-    return tuple(total), max(octave_err, rank_octave_err), max(sample_err, rank_sample_err)
+    return (launches + slam_launches + stream_launches + rank_launches,
+            max(octave_err, rank_octave_err), max(sample_err, rank_sample_err))
 
 
 def _stage_line(report) -> str:
@@ -1641,9 +1596,6 @@ def _shard_rank(rank, workdir: str) -> None:
         build_scale_space,
     )
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.parallel import distributed as distributed_module
     from sift_scale_space_extrema_detection_tpu_torch.parallel import (
         detect_and_describe_data_parallel,
@@ -1679,14 +1631,6 @@ def _shard_rank(rank, workdir: str) -> None:
         rec.update(rank=rank, local_rank=os.environ.get("LOCAL_RANK"), backend=dist.get_backend(),
                    device=str(dev), current_device=torch.cuda.current_device() if on_card else None)
 
-        def zero():
-            fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-            newton_ladder.launches = select_candidates.launches = 0
-
-        def counts():
-            return [fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                    newton_ladder.launches, select_candidates.launches]
-
         def peak_gib():
             return torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
 
@@ -1697,10 +1641,10 @@ def _shard_rank(rank, workdir: str) -> None:
         def timed(fn, reps):
             out = []
             for _ in range(reps):
-                _sync(torch, dev)
+                sync(dev)
                 t0 = time.perf_counter()
                 fn()
-                _sync(torch, dev)
+                sync(dev)
                 out.append(1e3 * (time.perf_counter() - t0))
             return out
 
@@ -1720,18 +1664,18 @@ def _shard_rank(rank, workdir: str) -> None:
                 return detect_and_describe_data_parallel(images, cfg, mesh, blur)
 
             run()  # warm-up
-            _sync(torch, dev)
+            sync(dev)
             before = torch.cuda.memory_allocated(dev) if on_card else 0
             reset_peak()
-            zero()
+            start = launch_counts()
             seen.clear()
             distributed_module.all_gather_rows = watching
             try:
                 got = run()
-                _sync(torch, dev)
+                sync(dev)
             finally:
                 distributed_module.all_gather_rows = gather
-            leg = dict(launches=counts(), outputs_on=sorted(set(seen)),
+            leg = dict(launches=path_launches(start), outputs_on=sorted(set(seen)),
                        peak_gib=peak_gib(),
                        peak_rise_bytes=torch.cuda.max_memory_allocated(dev) - before
                        if on_card else None,
@@ -1772,11 +1716,11 @@ def _shard_rank(rank, workdir: str) -> None:
             state, obs = make_problem(np.random.default_rng(0), c, l, opc, device=dev)
             reset_peak()
             out, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
+            sync(dev)
             t0 = time.perf_counter()
             again, cost_again = distributed_bundle_adjust(state, obs, mesh,
                                                           num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
+            sync(dev)
             seconds = time.perf_counter() - t0
             rec[f"ba_{name}"] = dict(
                 cost=cost.item(), rms=float(torch.sqrt(2.0 * cost / (c * opc))),
@@ -1804,19 +1748,19 @@ def _shard_rank(rank, workdir: str) -> None:
             reset_peak()
             for threshold in configs:
                 read, restore = _count_bas(slam_module)
-                zero()
+                start = launch_counts()
                 try:
-                    _sync(torch, dev)
+                    sync(dev)
                     t0 = time.perf_counter()
                     result = slam(threshold)
-                    _sync(torch, dev)
+                    sync(dev)
                     seconds = time.perf_counter() - t0
                 finally:
                     bas = read()
                     restore()
                 rec[f"slam_{threshold}"] = dict(
                     ate=port.evaluate_ate(result, gt_r, gt_t, device=dev), bas=list(bas),
-                    launches=counts(), seconds=seconds,
+                    launches=path_launches(start), seconds=seconds,
                     landmarks=int(result.landmark_valid.sum()),
                     digest=digest(result.rotations, result.translations))
             prof = StageProfile()
@@ -1825,7 +1769,7 @@ def _shard_rank(rank, workdir: str) -> None:
             rec["slam_0"]["peak_gib"] = peak_gib()
 
             read, restore = _count_bas(slam_module)
-            zero()
+            start = launch_counts()
             steps = []
             try:
                 sess = port.SlamSession(k_mat, recipe["sift_cfg"], configs[0], mesh=mesh,
@@ -1840,7 +1784,7 @@ def _shard_rank(rank, workdir: str) -> None:
                 restore()
             rec["session"] = dict(
                 ate=port.evaluate_ate(streamed, gt_r, gt_t, device=dev), bas=list(bas),
-                launches=counts(), step_ms=steps,
+                launches=path_launches(start), step_ms=steps,
                 digest=digest(streamed.rotations, streamed.translations))
 
         # (e) config[3]'s orbit, every BA sharded.
@@ -1848,12 +1792,12 @@ def _shard_rank(rank, workdir: str) -> None:
             seq = _orbit_sequence(synthetic, spec["orbit_frames"])
             read, restore = _count_bas(slam_module)
             try:
-                _sync(torch, dev)
+                sync(dev)
                 t0 = time.perf_counter()
                 orbit = port.run_slam(seq.pixels, seq.visible, seq.k_mat,
                                       port.SlamConfig(dist_ba_min_landmarks=0), mesh=mesh,
                                       device=dev)
-                _sync(torch, dev)
+                sync(dev)
                 seconds = time.perf_counter() - t0
             finally:
                 bas = read()
@@ -1916,12 +1860,12 @@ def _share_references(torch, port, dev, images, share: int, blurs) -> dict:
         for r in range(len(images) // share):
             frames = torch.from_numpy(images[r * share:(r + 1) * share])
             port.detect_and_describe_batched(frames, cfg, blur, device=dev)  # warm-up
-            _sync(torch, dev)
+            sync(dev)
             if on_card:
                 before = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
             parts.append(port.detect_and_describe_batched(frames, cfg, blur, device=dev))
-            _sync(torch, dev)
+            sync(dev)
             if on_card:
                 rise = max(rise, torch.cuda.max_memory_allocated(dev) - before)
             n_bytes = max(n_bytes, sum(t.numel() * t.element_size()
@@ -1937,18 +1881,17 @@ def _share_references(torch, port, dev, images, share: int, blurs) -> dict:
 
 
 def _slam_launches(recipe, frames: int, world: int):
-    """``((K1, K2, K3, R1, R2) of run_slam_from_images, (K1, K2, K3, R1, R2) of
-    SlamSession)`` on ``frames`` frames of ``recipe`` with a mesh of
-    ``world`` ranks, on each rank: one K1, one R1 and one R2 per octave and two K2
-    per frontend chunk of ``SLAM_CHUNK`` frames a rank; the session
-    describes each window it solves, once."""
+    """``(launches of run_slam_from_images, launches of SlamSession)`` by
+    path kernel on ``frames`` frames of ``recipe`` with a mesh of ``world``
+    ranks, on each rank: one K1, one R1 and one R2 per octave and two K2 per
+    frontend chunk of ``SLAM_CHUNK`` frames a rank; the session describes
+    each window it solves, once."""
     octaves = recipe["sift_cfg"].num_octaves
     chunks = -(-frames // (SLAM_CHUNK * world))
     start, win = 2, recipe["slam_cfg"].ba_interval
     calls = sum(1 for t in range(1, frames + 1) if t >= start + win and (t - start) % win == 0)
     calls += (frames - start) % win != 0
-    return (octaves * chunks, 2 * chunks, 0, octaves * chunks, octaves * chunks), (
-        octaves * calls, 2 * calls, 0, octaves * calls, octaves * calls)
+    return _fused_path(octaves * chunks, 2 * chunks), _fused_path(octaves * calls, 2 * calls)
 
 
 def _shard_bars(torch, ranks, spec, ref, smi, label):
@@ -1960,10 +1903,10 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
     ``slam_launches`` (:func:`_slam_launches`), ``orbit_ate`` and
     ``orbit_bas`` (BAs without a mesh). Each line starts with ``label``.
     The sharded BA's reruns are held bit-equal on gloo and read on NCCL.
-    Returns ``(launches, octave_err, sample_err, blur_err)``: the (K1, K2,
-    K3, R1, R2) launches of every rank's main paths ((a), (d) and the session; (b),
-    (c) and (e) launch none) and the kernels' largest differences from their
-    plain versions there."""
+    Returns ``(launches, octave_err, sample_err, blur_err)``: the path
+    kernels' launches of every rank's main paths ((a), (d) and the session;
+    (b), (c) and (e) launch none) and the kernels' largest differences from
+    their plain versions there."""
     import os
 
     world, on_card, cfg = len(ranks), spec["device"] == "cuda", ref["cfg"]
@@ -1978,11 +1921,10 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
     def gib(n_gib):
         return f"{n_gib:.3f} GiB" if n_gib is not None else "not measured"
 
-    def add(launches):
-        for i, n in enumerate(launches):
-            total[i] += n
+    def launched(legs):
+        return [Counter(leg["launches"]) for leg in legs]
 
-    total, octave_err, sample_err, blur_err = [0, 0, 0, 0, 0], 0.0, 0.0, 0.0
+    total, octave_err, sample_err, blur_err = Counter(), 0.0, 0.0, 0.0
     _say(
         f"{label}: {world} ranks, backend {ranks[0]['backend']}"
         f"{', NCCL ' + ranks[0]['nccl'] if on_card and nccl else ''}; by rank: LOCAL_RANK "
@@ -2002,8 +1944,9 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         _require(all(g == 0 for o in others for g in o),
                  f"a rank allocated memory on another rank's card: {others}")
 
-    expected = {"fused": [cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves],
-                "cuda": [0, 2, _blur_count(cfg), cfg.num_octaves, 0]}
+    expected = {"fused": _fused_path(cfg.num_octaves, 2),
+                "cuda": Counter(window_sample_pair=2, blur_fused=_blur_count(cfg),
+                                newton_ladder=cfg.num_octaves)}
     for blur in spec["blurs"]:
         legs = by_rank(lambda r: r[f"frontend_{blur}"])
         want = ref["digests"][blur]
@@ -2015,13 +1958,13 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         _say(
             f"{label}, frontend, blur={blur!r}: detect_and_describe_data_parallel on "
             f"{world * spec['share']}x{spec['height']}x{spec['width']}, {spec['share']} a rank: "
-            f"launches K1/K2/K3/R1/R2 by rank {[leg['launches'] for leg in legs]} (expected "
-            f"{expected[blur]} each), outputs before the gather on "
+            f"launches by rank {[leg['launches'] for leg in legs]} (expected "
+            f"{dict(expected[blur])} each), outputs before the gather on "
             f"{[leg['outputs_on'] for leg in legs]}, every field of the gathered result "
             f"bit-equal to the single device's shares {same}"
             + (f" (differing: {differ})" if differ else "")
-            + f"; {'K1/K2' if blur == 'fused' else 'K3'} vs plain on each rank's share, max abs "
-            f"diff by rank {errs}"
+            + f"; {'K1 and K2' if blur == 'fused' else 'K3'} vs plain on each rank's share, "
+            f"max abs diff by rank {errs}"
             + (f", masks {min(leg['masks_same'] for leg in legs):.6f}, slots "
                f"{min(leg['slots_same'] for leg in legs):.6f}" if blur == "fused" else "")
             + f"; rank 0 {spread(ms)} a {world * spec['share']}-frame step over {len(ms)} "
@@ -2039,8 +1982,8 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         else:
             blur_err = max(blur_err, *errs)
         if on_card:
-            _require(all(leg["launches"] == expected[blur] for leg in legs),
-                     f"{label}: a rank launched other counts than {expected[blur]} ({blur})")
+            _require(all(n == expected[blur] for n in launched(legs)),
+                     f"{label}: a rank launched other counts than {dict(expected[blur])} ({blur})")
             _require([leg["outputs_on"] for leg in legs] == [[f"cuda:{c}"] for c in spec["cards"]],
                      f"{label}: a rank's outputs before the gather are not on its card")
             # Rank 0 computed one share: its rise in memory is one share's,
@@ -2050,8 +1993,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
             limit = ref["share_rise"][blur] + 2 * world * ref["share_bytes"][blur]
             _require(rise <= limit, f"{label}: rank 0 rose by {rise} bytes on its card, one "
                      f"share by {ref['share_rise'][blur]}")
-        for leg in legs:
-            add(leg["launches"])
+        total += sum(launched(legs), Counter())
 
     if spec["keyframes"]:
         m = by_rank(lambda r: r["match"])
@@ -2099,8 +2041,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
                 f"{label}, SLAM: run_slam_from_images(mesh=...) on phase 15's gated sequence "
                 f"({spec['slam_frames']} x {spec['height']}x{spec['width']}), "
                 f"dist_ba_min_landmarks={key[5:]}: BAs single/sharded {s[0]['bas']}, launches "
-                f"K1/K2/K3/R1/R2 by rank {[x['launches'] for x in s]} (expected {list(runs)} "
-                f"each), "
+                f"by rank {[x['launches'] for x in s]} (expected {dict(runs)} each), "
                 f"valid landmarks {s[0]['landmarks']}, ATE {s[0]['ate']:.4f} (bar: within "
                 f"{SLAM_ATE_GAP} of the single device's {ref['slam_ate']:.4f}), trajectories "
                 f"bit-equal across ranks {same}; {1e3 * s[0]['seconds']:.1f} ms, "
@@ -2113,18 +2054,17 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
                      f"{label}: SLAM ({key}): ATE far from the single device's")
             _require(same, f"{label}: SLAM ({key}): the ranks' trajectories differ")
             if on_card:
-                _require(all(x["launches"] == list(runs) for x in s),
-                         f"{label}: SLAM ({key}): a rank launched other counts than {runs}")
-            for x in s:
-                add(x["launches"])
+                _require(all(n == runs for n in launched(s)),
+                         f"{label}: SLAM ({key}): a rank launched other counts than {dict(runs)}")
+            total += sum(launched(s), Counter())
         _require(ranks[0]["slam_0"]["bas"][0] == 0 and ranks[0]["slam_0"]["bas"][1] > 0,
                  f"{label}: at threshold 0 not every BA was sharded")
         sess = by_rank(lambda r: r["session"])
         steps = sess[0]["step_ms"]
         _say(
             f"{label}, session: SlamSession(mesh=...) at threshold 0 over the same frames: BAs "
-            f"single/sharded {sess[0]['bas']}, launches K1/K2/K3/R1/R2 by rank "
-            f"{[x['launches'] for x in sess]} (expected {list(session)} each), ATE "
+            f"single/sharded {sess[0]['bas']}, launches by rank "
+            f"{[x['launches'] for x in sess]} (expected {dict(session)} each), ATE "
             f"{sess[0]['ate']:.4f} (bar: within {SLAM_ATE_GAP} of the batch run's "
             f"{ranks[0]['slam_0']['ate']:.4f}), bit-equal to the batch run "
             f"{sess[0]['digest'] == ranks[0]['slam_0']['digest']}, ranks bit-equal "
@@ -2136,10 +2076,9 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
         _require(abs(sess[0]["ate"] - ranks[0]["slam_0"]["ate"]) < SLAM_ATE_GAP,
                  f"{label}: the session's ATE is far from the batch run's")
         if on_card:
-            _require(all(x["launches"] == list(session) for x in sess),
-                     f"{label}: a rank's session launched other counts than {session}")
-        for x in sess:
-            add(x["launches"])
+            _require(all(n == session for n in launched(sess)),
+                     f"{label}: a rank's session launched other counts than {dict(session)}")
+        total += sum(launched(sess), Counter())
 
     if spec["orbit_frames"]:
         o = by_rank(lambda r: r["orbit"])
@@ -2159,7 +2098,7 @@ def _shard_bars(torch, ranks, spec, ref, smi, label):
                  f"{label}: config[3]: not every BA was sharded")
         _require(all(x["digest"] == o[0]["digest"] for x in o),
                  f"{label}: config[3]: the ranks differ")
-    return tuple(total), octave_err, sample_err, blur_err
+    return total, octave_err, sample_err, blur_err
 
 
 def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH, HEIGHT),
@@ -2180,7 +2119,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     ``tools/torch_dryrun_multichip.py --world <world>``; then, on the card,
     (g) ``detect_and_describe_batched(device="cuda:<last card>")`` in this
     process. Returns ``(launches, octave_err, sample_err, blur_err)``: the
-    (K1, K2, K3, R1, R2) launches of the ranks' main paths ((a), (d) and the
+    path kernels' launches of the ranks' main paths ((a), (d) and the
     session, summed over the ranks) and of (g), and the kernels' largest
     differences from their plain versions there."""
     import datetime
@@ -2190,9 +2129,6 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     import torch.distributed as dist
 
     from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.parallel import (
         distributed_bundle_adjust,
         initialize_multihost,
@@ -2227,7 +2163,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
 
     kd, kv = fused["descriptor"][1:1 + keyframes], fused["valid"][1:1 + keyframes]
     ref["match_digest"] = digest(*torch.func.vmap(one)(kd, kv))
-    ref["match_ms"] = _host_ms(torch, lambda: torch.func.vmap(one)(kd, kv), repeats, dev)
+    ref["match_ms"] = host_ms(lambda: torch.func.vmap(one)(kd, kv), dev, repeats)
     n_slots = q.shape[0]
     del fused, q, qv, kd, kv
 
@@ -2241,12 +2177,12 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
             state, obs = make_problem(np.random.default_rng(0), c, l, opc, device=dev)
             if name == "dense":
                 distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
+            sync(dev)
             if on_card:
                 torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             _, cost = distributed_bundle_adjust(state, obs, mesh, num_iterations=BA_ITERATIONS)
-            _sync(torch, dev)
+            sync(dev)
             ref["ba"][name] = dict(
                 cost=cost.item(), ms=1e3 * (time.perf_counter() - t0) / BA_ITERATIONS,
                 peak=torch.cuda.max_memory_allocated(dev) if on_card else None)
@@ -2296,7 +2232,6 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     _say(f"multicard: {world} ranks by torchrun ran in {time.perf_counter() - t0:.1f} s")
     total, octave_err, sample_err, blur_err = _shard_bars(torch, ranks, spec, ref, smi,
                                                           "multicard")
-    total = list(total)
 
     # (f) the JAX package's dry run, ported.
     proc = subprocess.run(
@@ -2321,13 +2256,11 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
         held = torch.cuda.memory_allocated(0)
         torch.cuda.reset_peak_memory_stats(0)
         torch.cuda.reset_peak_memory_stats(other)
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = select_candidates.launches = 0
+        before = launch_counts()
         got = port.detect_and_describe_batched(frames, cfg, device=f"cuda:{other.index}")
         torch.cuda.synchronize(other)
-        launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                    newton_ladder.launches, select_candidates.launches)
-        total = [a + b for a, b in zip(total, launches)]
+        launches = path_launches(before)
+        total += launches
         fields = _described_fields(got)
         on_other = all(t.device == other for t in fields.values())
         same = all(torch.equal(t.cpu(), getattr(first_share, name).cpu())
@@ -2335,15 +2268,15 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
         card0_peak = torch.cuda.max_memory_allocated(0)
         _say(
             f"multicard (g): detect_and_describe_batched(device='{other}') on {batch}x{height}x"
-            f"{width} in this process after the runs on cuda:0: launches K1/K2/K3/R1/R2 "
-            f"{launches}, "
+            f"{width} in this process after the runs on cuda:0: launches "
+            f"{dict(launches)}, "
             f"outputs on {other} {on_other}, bit-equal to cuda:0's {same}; card 0 allocated "
             f"{held} bytes before and at most {card0_peak} during the call, card "
             f"{other.index} peaked at {gib(torch.cuda.max_memory_allocated(other))}; current "
             f"device {torch.cuda.current_device()} [{smi}]"
         )
-        _require(launches == (cfg.num_octaves, 2, 0, cfg.num_octaves, cfg.num_octaves),
-                 f"cuda:{other.index}: launches {launches}")
+        _require(launches == _fused_path(cfg.num_octaves, 2),
+                 f"cuda:{other.index}: launches {dict(launches)}")
         _require(on_other and same, f"the run on {other} differs from cuda:0's")
         _require(card0_peak == held, f"the run on {other} allocated on card 0")
         _require(torch.cuda.max_memory_allocated(other) > 0, f"nothing ran on {other}")
@@ -2351,7 +2284,7 @@ def _phase_multicard(torch, port, smi, dev, world=None, batch=BATCH, size=(WIDTH
     else:
         _say("multicard (g): a card other than 0 needs the card; not run on the CPU")
     shutil.rmtree(work, ignore_errors=True)
-    return tuple(total), octave_err, sample_err, blur_err
+    return total, octave_err, sample_err, blur_err
 
 
 def cli_records(outdir):
@@ -2444,8 +2377,8 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
                     kitti_size=KITTI_SIZE, solved_frames=SURFACE_SOLVED_FRAMES,
                     long_frames=SURFACE_LONG_FRAMES):
     """Phase 16: the user surfaces, ``cli.main`` and ``evaluate.main``,
-    in-process on ``dev``. Returns ``(launches, octave_err)``: the (K1, K2,
-    K3, R1) launches of the paths driven here, and the octave kernel's largest
+    in-process on ``dev``. Returns ``(launches, octave_err)``: the path
+    kernels' launches of the paths driven here, and the octave kernel's largest
     difference from its plain version at KITTI dims."""
     import os
     import shutil
@@ -2459,8 +2392,6 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     from sift_scale_space_extrema_detection_tpu_torch.data import read_tum_trajectory
     from sift_scale_space_extrema_detection_tpu_torch.models import slam as slam_module
     from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _as_unit_float
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import window_sample_pair
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import (
         fused_octave,
         fused_octave_reference,
@@ -2469,18 +2400,14 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
 
     on_card = dev.type == "cuda"
     card = [] if on_card else ["--device", "cpu"]  # a CPU rehearsal runs both legs there
-    total = [0, 0, 0, 0, 0]
+    total = Counter()
 
-    def zero():
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        fused_octave.clamped_launches = newton_ladder.launches = select_candidates.launches = 0
-
-    def counts():
-        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches, select_candidates.launches)
-        for i, n in enumerate(got):
-            total[i] += n
-        return got
+    def counted(before):
+        """The path kernels' launches since ``before``, added to ``total``."""
+        nonlocal total
+        launches = path_launches(before)
+        total += launches
+        return launches
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_surfaces")
     shutil.rmtree(work, ignore_errors=True)
@@ -2492,11 +2419,11 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         """The CLI on ``dev`` (launches counted) and with ``--device cpu``,
         held to the bars; returns the card run's seconds and records."""
         out = os.path.join(work, name)
-        zero()
+        before = launch_counts()
         t0 = time.perf_counter()
         rc, text = _quiet(cli.main, [path, "-o", out + "_card", *flags, *card])
         seconds = time.perf_counter() - t0
-        launches, clamped = counts(), fused_octave.clamped_launches
+        launches, clamped = counted(before), launches_since(before)["fused_octave.clamped"]
         _require(rc == 0, f"cli {name}: exit code {rc}")
         rc, _ = _quiet(cli.main, [path, "-o", out + "_cpu", *flags, "--no-galleries",
                                   "--device", "cpu"])
@@ -2507,15 +2434,16 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         share, min_cos = descriptor_cosines(got_desc, want_desc)
         timing = [ln for ln in text.splitlines() if ln.startswith("pipeline:")]
         _say(
-            f"cli {name} {' '.join(flags)}: launches K1/K2/K3/R1/R2 {launches} (expected "
-            f"{expected}), "
+            f"cli {name} {' '.join(flags)}: launches {dict(launches)} (expected "
+            f"{dict(expected)}), "
             f"K1 clamped {clamped}; {len(got)} keypoints against {len(want)} with --device cpu: "
             f"slot agreement {matched:.6f}, p99 position delta {p99:.3g} px; {len(got_desc['abs_x'])} "
             f"descriptors, matched {share:.6f}, min cosine {min_cos:.6f}; {timing[0]}, "
             f"{seconds:.2f} s for the whole command [{smi}]"
         )
         if on_card:
-            _require(launches == expected, f"cli {name}: launches {launches}, expected {expected}")
+            _require(launches == expected,
+                     f"cli {name}: launches {dict(launches)}, expected {dict(expected)}")
         _require(len(want) > 0 and matched >= SLOT_AGREEMENT and p99 <= P99_PX,
                  f"cli {name}: the card's keypoints differ from the CPU's")
         _require(share >= SLOT_AGREEMENT and min_cos >= MIN_COSINE,
@@ -2528,16 +2456,17 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     write_png(path, frame)
     desc = ["--descriptors"]
     octaves = cfg.num_octaves  # each refined on its own, by R1, and selected by R2
-    clamped, _ = cli_pair(path, "fused", desc, (octaves, 2 * octaves, 0, octaves, octaves))
+    clamped, _ = cli_pair(path, "fused", desc, _fused_path(octaves, 2 * octaves))
     if on_card:
         _require(clamped == 1, "cli: the deepest octave did not take the clamped mode")
     _, cuda_records = cli_pair(path, "cuda", desc + ["--blur", "cuda"],
-                               (0, 2 * octaves, n_blurs, octaves, 0))
+                               Counter(window_sample_pair=2 * octaves, blur_fused=n_blurs,
+                                       newton_ladder=octaves))
     # --blur matmul: full float32 products run, TF32 is refused.
-    zero()
+    before = launch_counts()
     rc, _ = _quiet(cli.main, [path, "-o", os.path.join(work, "matmul"), "--blur", "matmul",
                               "--no-galleries", *card])
-    matmul_launches = counts()
+    matmul_launches = counted(before)
     # Against --blur cuda, the other blur-by-blur path (the fused path caps
     # candidates by octave, these two by trio).
     matched, p99 = record_agreement(cli_records(os.path.join(work, "matmul"))[0], cuda_records)
@@ -2557,13 +2486,13 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
     _say(
-        f"cli --blur matmul: exit code {rc}, launches K1/K2/K3/R1/R2 {matmul_launches}, against "
+        f"cli --blur matmul: exit code {rc}, launches {dict(matmul_launches)}, against "
         f"the "
         f"--blur cuda run: slot agreement {matched:.6f}, p99 {p99:.3g} px (readings); its scale space "
         f"against the tap loop's on the card: max abs diff {matmul_err:.3g} (bar {MATMUL_ATOL}); "
         f"with TF32 on: refused {refused}"
     )
-    _require(rc == 0 and matmul_launches == (0, 0, 0, octaves if on_card else 0, 0),
+    _require(rc == 0 and matmul_launches == Counter(newton_ladder=octaves if on_card else 0),
              "cli --blur matmul launched a kernel of the fused or blur paths, or refined plainly")
     _require(matmul_err <= MATMUL_ATOL, "blur_matmul differs from the tap loop")
     _require(refused, "cli --blur matmul ran with TF32 on")
@@ -2583,7 +2512,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     for name, pixels in (("kitti", kitti_frame), ("kitti_padded", pad_to_tpu_friendly(kitti_frame))):
         path = os.path.join(work, f"{name}.png")
         write_png(path, pixels)
-        cli_pair(path, name, desc, (octaves, 2 * octaves, 0, octaves, octaves))
+        cli_pair(path, name, desc, _fused_path(octaves, 2 * octaves))
         base = torch.from_numpy(pixels)[None].to(dev).float() / torch.full((), 255.0, device=dev)
         worst, same = 0.0, 1.0
         for octave in range(cfg.num_octaves):
@@ -2619,13 +2548,13 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         native_io.load_batch_gray.native_frames = 0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        zero()
+        before = launch_counts()
         slam_module.run_slam_from_images = spy
         try:
             rc, text = _quiet(evaluate.main, argv + ["--out-traj", traj, *card])
         finally:
             slam_module.run_slam_from_images = run_slam_from_images
-        launches, native = counts(), native_io.load_batch_gray.native_frames
+        launches, native = counted(before), native_io.load_batch_gray.native_frames
         peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
         _require(rc == 0 and len(calls) == 1, f"evaluate {fmt}: exit code {rc}")
         images, args, kwargs, result = calls[0]
@@ -2642,14 +2571,13 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         rows = read_tum_trajectory(traj)[0].shape[0]
         chunks = -(-frames // SLAM_CHUNK)
         eval_octaves = args[1].num_octaves
-        expected = (eval_octaves * chunks, 2 * chunks, 0, eval_octaves * chunks,
-                    eval_octaves * chunks)
+        expected = _fused_path(eval_octaves * chunks, 2 * chunks)
         _say(
             f"evaluate {fmt}: {loaded.strip()}; natively decoded {native} "
             f"of {frames} frames, equal to the written pixels / 255 {decoded_ok}; frames handed to "
             f"SLAM {tuple(images.shape)} equal to the decoded and padded frames {same_frames}; "
             f"trajectory bit-equal to run_slam_from_images in this process {same_bits}; "
-            f"{rows} rows read back; launches K1/K2/K3/R1/R2 {launches} (expected {expected})"
+            f"{rows} rows read back; launches {dict(launches)} (expected {dict(expected)})"
         )
         _say(
             f"timing evaluate {fmt}: SLAM {metrics['slam_frames_per_s']} frames/s "
@@ -2665,7 +2593,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
         _require(np.isfinite(result.rotations).all() and np.isfinite(result.translations).all(),
                  f"evaluate {fmt}: the trajectory is not finite")
         if on_card:
-            _require(launches == expected, f"evaluate {fmt}: launches {launches}")
+            _require(launches == expected, f"evaluate {fmt}: launches {dict(launches)}")
 
         # Both kernels against their plain versions on the first chunk of
         # the frames evaluate handed to SLAM, with its SiftConfig.
@@ -2695,19 +2623,19 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     # and its re-association window).
     solved = ["--max-frames", str(solved_frames), "--match-gate", f"{SLAM_MATCH_GATE_PX:g}",
               "--reassoc", "2", "--max-tracks", str(SLAM_MAX_TRACKS)]
-    zero()
+    before = launch_counts()
     rc, text = _quiet(evaluate.main, seqs["tum"][0] + solved + card)
-    launches = counts()
+    launches = counted(before)
     _require(rc == 0, f"evaluate {' '.join(solved)}: exit code {rc}")
     metrics = json.loads(text.strip().splitlines()[-1])
     rc, text = _quiet(evaluate.main, seqs["tum"][0] + solved + ["--device", "cpu"])
     _require(rc == 0, f"evaluate {' '.join(solved)} --device cpu: exit code {rc}")
     cpu_metrics = json.loads(text.strip().splitlines()[-1])
     chunks = -(-solved_frames // SLAM_CHUNK)
-    expected = (4 * chunks, 2 * chunks, 0, 4 * chunks, 4 * chunks)  # evaluate's 4 octaves
+    expected = _fused_path(4 * chunks, 2 * chunks)  # evaluate's 4 octaves
     _say(
-        f"evaluate tum {' '.join(solved)}: launches K1/K2/K3/R1/R2 {launches} (expected "
-        f"{expected}); "
+        f"evaluate tum {' '.join(solved)}: launches {dict(launches)} (expected "
+        f"{dict(expected)}); "
         f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
         f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg, SLAM "
         f"{metrics['slam_frames_per_s']} frames/s; with --device cpu: {cpu_metrics['landmarks']} "
@@ -2717,7 +2645,7 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     _require(metrics["frames"] == cpu_metrics["frames"] == solved_frames,
              "evaluate, solved variant: frame counts differ")
     if on_card:
-        _require(launches == expected, f"evaluate, solved variant: launches {launches}")
+        _require(launches == expected, f"evaluate, solved variant: launches {dict(launches)}")
     _require(max(metrics["ate_rmse"], cpu_metrics["ate_rmse"]) < SLAM_REF_ATE,
              "evaluate, solved variant: the sequence is not solved")
     _require(abs(metrics["ate_rmse"] - cpu_metrics["ate_rmse"]) < SLAM_ATE_GAP,
@@ -2731,19 +2659,20 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     flags = ["--max-frames", str(long_frames), "--blur", "separable", "--match-gate",
              f"{SLAM_MATCH_GATE_PX:g}", "--reassoc", "2", "--max-tracks", str(SURFACE_LONG_TRACKS)]
     traj = os.path.join(work, "tum_long_traj.txt")
-    zero()
+    before = launch_counts()
     t0 = time.perf_counter()
     rc, text = _quiet(evaluate.main, seqs["tum"][0] + flags + ["--out-traj", traj, *card])
     seconds = time.perf_counter() - t0
-    launches = counts()
+    launches = counted(before)
     _require(rc == 0, f"evaluate {' '.join(flags)}: exit code {rc}")
     metrics = json.loads(text.strip().splitlines()[-1])
     _, rots, trans = read_tum_trajectory(traj)
     long_chunks = -(-long_frames // SLAM_CHUNK)
-    expected = (0, 2 * long_chunks, 0, 4 * long_chunks, 0)  # K2 twice, R1 4 times a chunk
+    # K2 twice, R1 4 times a chunk
+    expected = Counter(window_sample_pair=2 * long_chunks, newton_ladder=4 * long_chunks)
     _say(
-        f"evaluate tum {' '.join(flags)}: launches K1/K2/K3/R1/R2 {launches} (expected "
-        f"{expected}); "
+        f"evaluate tum {' '.join(flags)}: launches {dict(launches)} (expected "
+        f"{dict(expected)}); "
         f"{metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, RPE "
         f"{metrics['rpe_trans_rmse']}, RRE {metrics['rpe_rot_rmse_deg']} deg (readings), SLAM "
         f"{metrics['slam_frames_per_s']} frames/s, {seconds:.2f} s for the whole command [{smi}]"
@@ -2753,9 +2682,10 @@ def _phase_surfaces(torch, port, smi, dev, frames=SURFACE_FRAMES, size=(WIDTH, H
     _require(np.isfinite(rots).all() and np.isfinite(trans).all(),
              f"evaluate, {long_frames}-frame cut: the trajectory is not finite")
     if on_card:
-        _require(launches == expected, f"evaluate, {long_frames}-frame cut: launches {launches}")
+        _require(launches == expected,
+                 f"evaluate, {long_frames}-frame cut: launches {dict(launches)}")
     shutil.rmtree(work, ignore_errors=True)
-    return tuple(total), octave_err
+    return total, octave_err
 
 
 def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
@@ -2764,12 +2694,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     """Phase 18: the blur-by-blur frontend (``blur="cuda"``: K3 once per
     blurred scale, each trio capped on its own) on the detect, describe,
     SLAM, streaming, sharded and ``evaluate`` paths, and the pooled
-    refinement flags on the fused path, on ``dev``. Each part's K1/K2/K3/R1/R2
-    launches are counted from zero. ``blur="cuda"`` is held equal to
+    refinement flags on the fused path, on ``dev``. Each part's path-kernel
+    launches are counted. ``blur="cuda"`` is held equal to
     ``blur="separable"`` on the same device (K3 is bit-equal to its plain
     version), and the card against ``device="cpu"`` on the batch's first
     ``cpu_frames`` frames (an image is detected on its own). Returns
-    ``(launches, sample_err)``: the (K1, K2, K3, R1, R2) launches of the paths
+    ``(launches, sample_err)``: the path kernels' launches of the paths
     driven here and K2's largest difference from its plain version on this path's
     slots."""
     import dataclasses
@@ -2787,12 +2717,10 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         compact_extrema,
         find_extrema,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
         window_sample_pair,
         window_sample_pair_reference,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.ops.refine import refine_keypoints
     from sift_scale_space_extrema_detection_tpu_torch.parallel import (
         detect_and_describe_data_parallel,
@@ -2801,21 +2729,17 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     )
 
     on_card = dev.type == "cuda"
-    total = [0, 0, 0, 0, 0]
+    total = Counter()
 
-    def zero():
-        fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-        newton_ladder.launches = select_candidates.launches = 0
-
-    def counts():
-        got = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-               newton_ladder.launches, select_candidates.launches)
-        for i, n in enumerate(got):
-            total[i] += n
-        return got
+    def counted(before):
+        """The path kernels' launches since ``before``, added to ``total``."""
+        nonlocal total
+        launches = path_launches(before)
+        total += launches
+        return launches
 
     def reset_peak():
-        _sync(torch, dev)
+        sync(dev)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
 
@@ -2842,6 +2766,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     width, height = size
     cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
     n_blurs, octaves = _blur_count(cfg), cfg.num_octaves
+    per_trio = Counter(blur_fused=n_blurs, newton_ladder=octaves)  # K3 a blur, R1 an octave
     images_cpu = torch.from_numpy(_make_batch(batch, height, width))
     images = images_cpu.to(dev)
     first = images_cpu[:cpu_frames]
@@ -2850,10 +2775,10 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     # (a) the per-trio detect path.
     port.detect_batched(images[:4], cfg, "cuda", device=dev)  # warm-up
     reset_peak()
-    zero()
+    before = launch_counts()
     keypoints, extrema = port.detect_batched(images, cfg, "cuda", device=dev)
-    _sync(torch, dev)
-    launches = counts()
+    sync(dev)
+    launches = counted(before)
     detect_peak = peak_gib()
     separable, sep_extrema = port.detect_batched(images, cfg, "separable", device=dev)
     same = fields_equal(keypoints, separable) and all(
@@ -2862,22 +2787,21 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     fused, _ = port.detect_batched(images, cfg, device=dev)
     cpu_keypoints, _ = port.detect_batched(first, cfg, "separable", device="cpu")
     agreement, p99, _, _ = against_cpu(keypoints, cpu_keypoints)
-    detect_ms = _host_ms(torch, lambda: port.detect_batched(images, cfg, "cuda", device=dev), 3,
-                         dev)
-    fused_ms = _host_ms(torch, lambda: port.detect_batched(images, cfg, device=dev), 3, dev)
+    detect_ms = host_ms(lambda: port.detect_batched(images, cfg, "cuda", device=dev), dev, 3)
+    fused_ms = host_ms(lambda: port.detect_batched(images, cfg, device=dev), dev, 3)
     del separable, sep_extrema
     # Synchronised stages: scale space, DoG, scan + compaction per octave, refinement.
     stage = {"scale space": 0.0, "DoG": 0.0, "refinement": 0.0}
     scan = [0.0] * cfg.num_octaves
     iters = 3
     for _ in range(iters):
-        _sync(torch, dev)
+        sync(dev)
         t0 = time.perf_counter()
         stacks = frontend.build_scale_space(images, cfg, "cuda", device=dev)
-        _sync(torch, dev)
+        sync(dev)
         t1 = time.perf_counter()
         dogs = frontend.build_dog(stacks)
-        _sync(torch, dev)
+        sync(dev)
         t2 = time.perf_counter()
         stage["scale space"] += t1 - t0
         stage["DoG"] += t2 - t1
@@ -2887,12 +2811,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
             t0 = time.perf_counter()
             e = find_extrema(d, cfg, cfg.keypoints_per_trio(octave))
             selected.append(compact_extrema(e, cfg.refine_capacity(octave)))
-            _sync(torch, dev)
+            sync(dev)
             scan[octave] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for octave, (d, sel) in enumerate(zip(dogs, selected)):
             refine_keypoints(d, sel, octave, cfg)
-        _sync(torch, dev)
+        sync(dev)
         stage["refinement"] += time.perf_counter() - t0
         del dogs, selected
     stages = ", ".join(
@@ -2904,8 +2828,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     _say(
         f"per-trio detect (a): detect_batched(blur='cuda') {shape}, {cfg.num_octaves} octaves x "
         f"{cfg.scales_per_octave} scales, {cfg.max_keypoints_per_trio} slots a trio at octave 0: "
-        f"launches K1/K2/K3/R1/R2 {launches} (expected {(0, 0, n_blurs, octaves, 0)}); every field "
-        f"and every "
+        f"launches {dict(launches)} (expected {dict(per_trio)}); every field and every "
         f"octave's per-trio Extrema equal to blur='separable' on the same device {same}; valid "
         f"keypoints {int(keypoints.valid.sum())} (fused path {int(fused.valid.sum())}), "
         f"candidates per octave {counters}; against device='cpu' on the first {cpu_frames} "
@@ -2918,7 +2841,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         f"synchronised stages: {stages} [{smi}]"
     )
     if on_card:
-        _require(launches == (0, 0, n_blurs, octaves, 0), f"per-trio detect: launches {launches}")
+        _require(launches == per_trio, f"per-trio detect: launches {dict(launches)}")
     _require(same, "per-trio detect: blur='cuda' differs from blur='separable'")
     _require(int(keypoints.valid.sum()) > 0, "per-trio detect: no valid keypoints")
     _require(all(bool(torch.isfinite(getattr(keypoints, f)[keypoints.valid]).all())
@@ -2931,10 +2854,11 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     # (b) the per-trio describe path.
     port.detect_and_describe_batched(images[:4], cfg, "cuda", device=dev)  # warm-up
     reset_peak()
-    zero()
+    before = launch_counts()
     described = port.detect_and_describe_batched(images, cfg, "cuda", device=dev)
-    _sync(torch, dev)
-    describe_launches = counts()
+    sync(dev)
+    describe_launches = counted(before)
+    per_trio_described = per_trio + Counter(window_sample_pair=2)
     describe_peak = peak_gib()
     same = fields_equal(described, port.detect_and_describe_batched(images, cfg, "separable",
                                                                     device=dev))
@@ -2965,12 +2889,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         sample_err = max(sample_err, *((g - w).abs().max().item() for g, w in zip(got_s, want_s)))
     shapes = [tuple(r[1].shape) for r in recorded]
     del stacks, keypoints_list, recorded
-    describe_ms = _host_ms(
-        torch, lambda: port.detect_and_describe_batched(images, cfg, "cuda", device=dev), 3, dev
+    describe_ms = host_ms(
+        lambda: port.detect_and_describe_batched(images, cfg, "cuda", device=dev), dev, 3
     )
     _say(
         f"per-trio describe (b): detect_and_describe_batched(blur='cuda') {shape}: launches "
-        f"K1/K2/K3/R1/R2 {describe_launches} (expected {(0, 2, n_blurs, octaves, 0)}); every field "
+        f"{dict(describe_launches)} (expected {dict(per_trio_described)}); every field "
         f"equal to "
         f"blur='separable' on the same device {same}; valid descriptors "
         f"{int(described.valid.sum())}; against device='cpu' on the first {cpu_frames} frames: "
@@ -2984,8 +2908,8 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         f"[{smi}]"
     )
     if on_card:
-        _require(describe_launches == (0, 2, n_blurs, octaves, 0),
-                 f"per-trio describe: launches {describe_launches}")
+        _require(describe_launches == per_trio_described,
+                 f"per-trio describe: launches {dict(describe_launches)}")
     _require(same, "per-trio describe: blur='cuda' differs from blur='separable'")
     _require(int(described.valid.sum()) > 0, "per-trio describe: no valid descriptors")
     _require(bool(torch.isfinite(described.descriptor).all()), "per-trio describe: not finite")
@@ -3005,43 +2929,44 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     try:
         mesh = make_mesh(1, device_type=dev.type)
         detect_and_describe_data_parallel(images_cpu[:4], cfg, mesh, blur="cuda")  # warm-up
-        _sync(torch, dev)
-        zero()
+        sync(dev)
+        before = launch_counts()
         sharded = detect_and_describe_data_parallel(images_cpu, cfg, mesh, blur="cuda")
-        _sync(torch, dev)
-        shard_launches = counts()
+        sync(dev)
+        shard_launches = counted(before)
         shard_same = fields_equal(sharded, described)
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
     _say(
         f"per-trio sharded (e): detect_and_describe_data_parallel(blur='cuda') at world 1 "
-        f"({backend}) on {shape}: launches K1/K2/K3/R1/R2 {shard_launches} (expected "
-        f"{(0, 2, n_blurs, octaves, 0)}); every field equal to (b) {shard_same}"
+        f"({backend}) on {shape}: launches {dict(shard_launches)} (expected "
+        f"{dict(per_trio_described)}); every field equal to (b) {shard_same}"
     )
     if on_card:
-        _require(shard_launches == (0, 2, n_blurs, octaves, 0),
-                 f"per-trio sharded: launches {shard_launches}")
+        _require(shard_launches == per_trio_described,
+                 f"per-trio sharded: launches {dict(shard_launches)}")
     _require(shard_same, "per-trio sharded: the data-parallel frontend differs from (b)")
     del sharded, described
 
     # (g) the pooled refinement flags on the fused path.
     for flag, pools in (("unified_refine", 1), ("refine_tail_pool", 2)):
         flagged = dataclasses.replace(cfg, **{flag: True})
-        expected = (octaves, 0, 0, pools, octaves)  # R1 once a pool: all, or octave 0 and the rest
-        zero()
+        # R1 once a pool: all, or octave 0 and the rest
+        expected = Counter(fused_octave=octaves, select_candidates=octaves, newton_ladder=pools)
+        before = launch_counts()
         pooled, _ = port.detect_batched(images, flagged, device=dev)
-        _sync(torch, dev)
-        pool_launches = counts()
+        sync(dev)
+        pool_launches = counted(before)
         again, _ = port.detect_batched(images, flagged, device=dev)
         rerun_same = fields_equal(pooled, again)
         moved = int((pooled.reject_reason != fused.reject_reason).sum())
         cpu_pooled, _ = port.detect_batched(first, flagged, device="cpu")
         agreement, p99, _, _ = against_cpu(pooled, cpu_pooled)
-        pool_ms = _host_ms(torch, lambda: port.detect_batched(images, flagged, device=dev), 3, dev)
+        pool_ms = host_ms(lambda: port.detect_batched(images, flagged, device=dev), dev, 3)
         _say(
             f"pooled refinement (g), {flag}: detect_batched {shape} (fused): launches "
-            f"K1/K2/K3/R1/R2 {pool_launches} (expected {expected}); valid "
+            f"{dict(pool_launches)} (expected {dict(expected)}); valid "
             f"{int(pooled.valid.sum())} (per octave {int(fused.valid.sum())}), reject_reason "
             f"differs from the per-octave path on {moved} slots; rerun bit-equal {rerun_same}; "
             f"against device='cpu' on the first {cpu_frames} frames: slot agreement "
@@ -3049,7 +2974,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
             f"(per octave {fused_ms:.2f} ms) [{smi}]"
         )
         if on_card:
-            _require(pool_launches == expected, f"{flag}: launches {pool_launches}")
+            _require(pool_launches == expected, f"{flag}: launches {dict(pool_launches)}")
         _require(rerun_same, f"{flag}: two runs differ")
         _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
                  f"{flag}: the card disagrees with the CPU")
@@ -3070,12 +2995,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
                                          device=dev, **track)
 
     slam("cuda")  # warm-up
-    _sync(torch, dev)
-    zero()
+    sync(dev)
+    before = launch_counts()
     t0 = time.perf_counter()
     result = slam("cuda")
     seconds = time.perf_counter() - t0  # the result is host numpy: synchronised
-    slam_launches = counts()
+    slam_launches = counted(before)
     sep = slam("separable")
     slam_same = (np.array_equal(result.rotations, sep.rotations)
                  and np.array_equal(result.translations, sep.translations))
@@ -3086,11 +3011,12 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
                                  gt_r, gt_t, device=dev)
     ate_cpu = port.evaluate_ate(port.run_slam(pixels, visible, k_mat, slam_cfg, device="cpu"),
                                 gt_r, gt_t, device="cpu")
-    expected = (0, 2 * chunks, per_chunk * chunks, sift_cfg.num_octaves * chunks, 0)
+    expected = Counter(window_sample_pair=2 * chunks, blur_fused=per_chunk * chunks,
+                       newton_ladder=sift_cfg.num_octaves * chunks)
     _say(
         f"per-trio SLAM (c): run_slam_from_images(blur='cuda') on phase 15's {slam_frames} x "
         f"{height}x{width} sequence, {SLAM_MATCH_GATE_PX:g} px gate, {SLAM_MAX_TRACKS} tracks: "
-        f"launches K1/K2/K3/R1/R2 {slam_launches} (expected {expected}: {chunks} chunks x "
+        f"launches {dict(slam_launches)} (expected {dict(expected)}: {chunks} chunks x "
         f"{per_chunk} blurs), trajectory bit-equal to blur='separable' {slam_same}, valid "
         f"landmarks {int(result.landmark_valid.sum())} of {visible.shape[1]} tracks, ATE "
         f"{ate:.4f}; run_slam on these tracks: ATE {ate_card:.4f} on the card, {ate_cpu:.4f} "
@@ -3098,7 +3024,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
         f"{1e3 * seconds:.1f} ms, {slam_frames / seconds:.2f} frames/s [{smi}]"
     )
     if on_card:
-        _require(slam_launches == expected, f"per-trio SLAM: launches {slam_launches}")
+        _require(slam_launches == expected, f"per-trio SLAM: launches {dict(slam_launches)}")
     _require(slam_same, "per-trio SLAM: blur='cuda' differs from blur='separable'")
     _require(bool(np.isfinite(result.rotations).all() & np.isfinite(result.translations).all()),
              "per-trio SLAM: the trajectory is not finite")
@@ -3109,23 +3035,25 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
     sess = port.SlamSession(k_mat, sift_cfg, slam_cfg, blur="cuda",
                             reassoc_window=recipe["reassoc_window"], device=dev,
                             **recipe["solved"])
-    zero()
+    before = launch_counts()
     for image in frames:
         sess.add_frame(image)
     streamed = sess.finalize()
-    stream_launches = counts()
+    stream_launches = counted(before)
     stream_same = (np.array_equal(streamed.rotations, result.rotations)
                    and np.array_equal(streamed.translations, result.translations))
     start, win = 2, slam_cfg.ba_interval
     steps = sum(1 for t in range(1, slam_frames + 1) if t >= start + win and (t - start) % win == 0)
     calls = steps + ((slam_frames - start) % win != 0)
-    expected = (0, 2 * calls, per_chunk * calls, sift_cfg.num_octaves * calls, 0)
+    expected = Counter(window_sample_pair=2 * calls, blur_fused=per_chunk * calls,
+                       newton_ladder=sift_cfg.num_octaves * calls)
     _say(
         f"per-trio streaming (d): SlamSession(blur='cuda') over the same frames: launches "
-        f"K1/K2/K3/R1/R2 {stream_launches} (expected {expected}), bit-equal to (c) {stream_same}"
+        f"{dict(stream_launches)} (expected {dict(expected)}), bit-equal to (c) {stream_same}"
     )
     if on_card:
-        _require(stream_launches == expected, f"per-trio streaming: launches {stream_launches}")
+        _require(stream_launches == expected,
+                 f"per-trio streaming: launches {dict(stream_launches)}")
     _require(stream_same, "per-trio streaming: the result differs from the batch run's")
     del frames, pixels, visible
 
@@ -3139,28 +3067,30 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
                         ("cuda", ["--blur", "cuda", *card]),
                         ("cpu", ["--blur", "separable", "--device", "cpu"])):
         traj = os.path.join(work, f"{name}.txt")
-        zero()
+        before = launch_counts()
         rc, text = _quiet(evaluate.main, argv + solved + flags + ["--out-traj", traj])
         _require(rc == 0, f"evaluate --blur {name}: exit code {rc}")
         metrics = json.loads(text.strip().splitlines()[-1])
-        runs[name] = (counts(), metrics, read_tum_trajectory(traj))
+        runs[name] = (counted(before), metrics, read_tum_trajectory(traj))
     eval_launches, metrics, traj_pallas = runs["pallas"]
     traj_same = all(np.array_equal(a, b) for a, b in zip(traj_pallas, runs["cuda"][2]))
     cpu_metrics = runs["cpu"][1]
     eval_chunks = -(-solved_frames // SLAM_CHUNK)
     eval_blurs = _blur_count(port.SiftConfig(num_octaves=4))  # evaluate's 4 octaves x 3 scales
-    expected = (0, 2 * eval_chunks, eval_blurs * eval_chunks, 4 * eval_chunks, 0)
+    expected = Counter(window_sample_pair=2 * eval_chunks, blur_fused=eval_blurs * eval_chunks,
+                       newton_ladder=4 * eval_chunks)
     _say(
         f"per-trio evaluate (f): evaluate --blur pallas {' '.join(solved)} on the TUM rehearsal: "
-        f"launches K1/K2/K3/R1/R2 {eval_launches} (expected {expected}); trajectory equal to "
-        f"--blur "
-        f"cuda {traj_same}; {metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, SLAM "
+        f"launches {dict(eval_launches)} (expected {dict(expected)}); trajectory equal to "
+        f"--blur cuda {traj_same}; {metrics['landmarks']} landmarks, ATE {metrics['ate_rmse']}, "
+        f"SLAM "
         f"{metrics['slam_frames_per_s']} frames/s; --device cpu --blur separable: "
         f"{cpu_metrics['landmarks']} landmarks, ATE {cpu_metrics['ate_rmse']} (bars: < "
         f"{SLAM_REF_ATE} and within {SLAM_ATE_GAP}) [{smi}]"
     )
     if on_card:
-        _require(eval_launches == expected, f"per-trio evaluate: launches {eval_launches}")
+        _require(eval_launches == expected,
+                 f"per-trio evaluate: launches {dict(eval_launches)}")
     _require(traj_same, "per-trio evaluate: --blur pallas differs from --blur cuda")
     _require(metrics["frames"] == cpu_metrics["frames"] == solved_frames,
              "per-trio evaluate: frame counts differ")
@@ -3168,7 +3098,7 @@ def _phase_blur_paths(torch, port, smi, dev, batch=BATCH, size=(WIDTH, HEIGHT),
              and abs(metrics["ate_rmse"] - cpu_metrics["ate_rmse"]) < SLAM_ATE_GAP,
              "per-trio evaluate: the card and the CPU do not both solve the cut")
     shutil.rmtree(work, ignore_errors=True)
-    return tuple(total), sample_err
+    return total, sample_err
 
 
 def _tree_digest(root: str) -> str:
@@ -3194,17 +3124,12 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
     orbax, tensorstore or zstandard exists, and BASELINE config[3] resumed
     from one on ``dev``. ``orbit_ate``: phase 15 (g)'s uninterrupted ATE,
     printed beside the resumed one. Nothing here is caught: an unreadable
-    fixture ends the script. Returns the (K1, K2, K3, R1, R2) launches of the
+    fixture ends the script. Returns the path kernels' launches of the
     resume (none: ``run_slam`` on tracks runs no frontend)."""
     import os
     import shutil
     import tempfile
 
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
-        window_sample_pair,
-    )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
     from sift_scale_space_extrema_detection_tpu_torch.sfm.ba import BAState
     from sift_scale_space_extrema_detection_tpu_torch.utils import checkpoint, synthetic
 
@@ -3254,21 +3179,19 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
         outlier_frac=recipe["outlier_frac"],
     )
     cfg = port.SlamConfig()
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     results, run_s = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("slam", "slam_npz"):
             work = os.path.join(tmp, name)
             shutil.copytree(os.path.join(fixture, name), work)
-            _sync(torch, dev)
+            sync(dev)
             t0 = time.perf_counter()
             results[name] = port.run_slam(seq.pixels, seq.visible, seq.k_mat, cfg,
                                           checkpoint_dir=work, resume=True, device=dev)
-            _sync(torch, dev)
+            sync(dev)
             run_s[name] = time.perf_counter() - t0
-    launches = (fused_octave.launches, window_sample_pair.launches, blur_fused.launches,
-                newton_ladder.launches, select_candidates.launches)
+    launches = path_launches(before)
     got, npz = results["slam"], results["slam_npz"]
     same = (np.array_equal(got.rotations, npz.rotations)
             and np.array_equal(got.translations, npz.translations))
@@ -3284,14 +3207,14 @@ def _phase_orbax(torch, port, smi, dev, orbit_ate):
         f"{same}, valid landmarks {landmarks} (bar > {ORBIT_MIN_LANDMARKS}), ATE {ate:.6f} (bars: "
         f"< {ORBIT_ATE}, within {SLAM_ATE_GAP} of the JAX package's resumed "
         f"{record['jax_resumed_ate']:.6f}); phase 15 (g)'s uninterrupted ATE {orbit_ate:.6f}; "
-        f"K1/K2/K3/R1/R2 {launches} [{smi}]"
+        f"launches {dict(launches)} [{smi}]"
     )
     _require(same, "orbax: the resume differs from the npz twin's")
     _require(landmarks > ORBIT_MIN_LANDMARKS, "orbax resume: too few landmarks")
     _require(ate < ORBIT_ATE, "orbax resume: ATE above the reference's bar")
     _require(abs(ate - record["jax_resumed_ate"]) < SLAM_ATE_GAP,
              "orbax resume: ATE far from the JAX package's")
-    _require(launches == (0, 0, 0, 0, 0), "orbax resume: a kernel launched on a tracks-only path")
+    _require(not any(launches.values()), "orbax resume: a kernel launched on a tracks-only path")
 
     # (c) no way round the reader.
     loaded = sorted(m for m in sys.modules
@@ -3368,14 +3291,14 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, sample_work
     from sift_scale_space_extrema_detection_tpu_torch.benchmarks import bw_probe, tap_probe
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build, probes
 
-    earlier = {p.__name__: p.launches for p in probes.PROBES}
+    names = [p.__name__ for p in probes.PROBES]
+    before = launch_counts()
+    earlier = {name: before[name] for name in names}
     _require(not any(earlier.values()), f"a probe kernel was launched in phases 1-20: {earlier}")
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
 
-    # (a) The entry points as a user runs them, every count zeroed before.
-    for p in probes.PROBES:
-        p.launches = 0
+    # (a) The entry points as a user runs them, their launches counted.
     for name, main, argv in (
         ("bw_probe", bw_probe.main, ["--gb", str(gb), "--device", dev.type]),
         ("tap_probe", tap_probe.main, ["--device", dev.type]),
@@ -3384,7 +3307,8 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, sample_work
         rc, text = _quiet(main, argv)
         _require(rc == 0, f"{name} {argv} exited with {rc}")
         _say(f"probes (a): python -m ...benchmarks.{name} {' '.join(argv)}: {text.strip()}")
-    launches = {p.__name__: p.launches for p in probes.PROBES}
+    since = launches_since(before)
+    launches = {name: since[name] for name in names}
     _say(f"probes (a): launches of the entry points {launches}")
     if dev.type == "cuda":  # the launch bar is the card's only
         _require(all(launches.values()), f"an entry point did not launch its kernel: {launches}")
@@ -3512,8 +3436,8 @@ def _phase_probes(torch, smi, dev, octave_work=None, blur_work=None, sample_work
     tap_rate = long_rows * probes.W * ops_per_el / (tl_ms * 1e-3)
     mode_line = []
     for mode in probes.TAP_MODES:
-        ms_short = _event_ms(torch, lambda: probes.tap_chain(xt, taps, mode), 50)
-        ms_long = _event_ms(torch, lambda: probes.tap_chain(xl, taps, mode), 20)
+        ms_short = time_ms(lambda: probes.tap_chain(xt, taps, mode), 50, dev)
+        ms_long = time_ms(lambda: probes.tap_chain(xl, taps, mode), 20, dev)
         mode_line.append(
             f"{mode} {ms_short:.4f} ms at {probes.ROWS} rows, {ms_long:.4f} ms at {long_rows} "
             f"({ms_long * 1e9 / (long_rows * probes.W * per_tap):.4f} ps/element·tap)"
@@ -3613,10 +3537,9 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
     runs: K1 in ``bench`` and ``--blur fused``, K3 with ``--blur cuda``, K2
     in every describe, every SLAM mode and ``descriptor_bench`` (the modules
     raise where a kernel of their path was launched no time), and no other.
-    Every count is zeroed before the phase; returns its (K1, K2, K3, R1, R2)
-    launches (R1, refinement, and R2, selection, counted over the phase: on
-    the card every script here but ``ba_bench`` refines, and every fused
-    frontend selects on R2). The other arguments cut it for a CPU
+    Returns the path kernels' launches over the phase (on the card every
+    script here but ``ba_bench`` refines on R1, and every fused frontend
+    selects on R2) and the outputs. The other arguments cut it for a CPU
     rehearsal."""
     import tempfile
 
@@ -3625,20 +3548,13 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
         bench,
         descriptor_bench,
         frontend_bench,
-        kernel_counts,
         slam_bench,
     )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
-        window_sample_pair,
-    )
-    from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.octave import fused_octave
 
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.empty_cache()
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     t_phase = time.perf_counter()
     outputs = {}
 
@@ -3694,14 +3610,13 @@ def _phase_benchmarks(torch, smi, dev, ceilings=None, suite_seeds=1, slam_frames
          f"{LOOP_REGIME_TPU_ATE} [{smi}]")
     check("descriptor_bench", descriptor_bench.run(device=device, warps=warps),
           {k1: False, k2: True, k3: False})
-    launches = dict(kernel_counts(), newton_ladder=newton_ladder.launches,
-                    select_candidates=select_candidates.launches)
-    _say(f"benchmarks: phase 22 launched {launches} and took "
+    launches = path_launches(before)
+    _say(f"benchmarks: phase 22 launched {dict(launches)} and took "
          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
     if on_card:
         _require(launches["newton_ladder"] > 0, "benchmarks: refinement never took its kernel")
         _require(launches["select_candidates"] > 0, "benchmarks: selection never took its kernels")
-    return tuple(launches[k] for k in (k1, k2, k3, "newton_ladder", "select_candidates")), outputs
+    return launches, outputs
 
 
 # Phase 23: scatter_probe also at 16x the script's observations and landmarks
@@ -3720,8 +3635,8 @@ def _phase_scaling(torch, smi, dev, scatter_scales=(1, SCATTER_SCALE), scaling=N
     the line naming the four-card tool. Every number finite; the sorted
     route's reruns bit-equal and within ``SORTED_ABS_ERR`` of
     ``index_add_``'s sums; the module's own bars (ranks, worlds, BA against
-    ``bundle_adjust``, K1 and K2 launched on the card). Returns the (K1,
-    K2, K3) launches of (b)'s ranks."""
+    ``bundle_adjust``, each leg's path kernels launched on the card).
+    Returns the path kernels' launches of (b)'s ranks."""
     from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
         scaling_bench,
         scatter_probe,
@@ -3748,16 +3663,15 @@ def _phase_scaling(torch, smi, dev, scatter_scales=(1, SCATTER_SCALE), scaling=N
     out = scaling_bench.run(devices=1, device=str(dev), **(scaling or {}))
     bad = _finite_numbers(out)
     _require(not bad, f"scaling (b): scaling_bench has non-finite readings {bad}")
-    launches = [sum(leg[k] for leg in out["launches"].values())
-                for k in ("fused_octave", "window_sample_pair", "blur_fused")]
+    launches = sum((Counter(leg) for leg in out["launches"].values()), Counter())
     _say(f"scaling (b): scaling_bench --devices 1, one rank by torchrun: {json.dumps(out)} "
          f"[{smi}]")
     _say("scaling (c): scaling_bench --devices 4 (--batch-per-device 2 and 64) and "
          "multihost_bench --nproc 2 need four cards: tools/torch_multicard_phase.py runs them "
          "on four, after phase 20")
     _say(f"scaling: phase 23 took {time.perf_counter() - t_phase:.1f} s; its ranks launched "
-         f"K1/K2/K3 {launches} [{smi}]")
-    return tuple(launches)
+         f"{dict(launches)} [{smi}]")
+    return launches
 
 
 def main() -> int:
@@ -3880,27 +3794,28 @@ def main() -> int:
              "detect_batched of a CPU tensor did not run on the card")
     del warm
     torch.cuda.reset_peak_memory_stats()
-    fused_octave.launches = newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     keypoints, extrema = detect_batched(images, cfg)
     torch.cuda.synchronize()
-    launches, detect_r1, detect_r2 = (fused_octave.launches, newton_ladder.launches,
-                                      select_candidates.launches)
+    detect_launches = path_launches(before)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_slots = sum(cfg.refine_capacity(o) for o in range(cfg.num_octaves))
     valid = keypoints.valid
     n_valid = int(valid.sum())
     _say(
         f"main path: detect_batched {BATCH}x{HEIGHT}x{WIDTH}, "
-        f"{cfg.num_octaves} octaves x {spo} scales: kernel launches {launches}, R1 {detect_r1}, "
-        f"R2 {detect_r2}, "
+        f"{cfg.num_octaves} octaves x {spo} scales: launches {dict(detect_launches)}, "
         f"valid keypoints {n_valid} of {BATCH * n_slots} slots, peak device "
         f"memory {peak_gib:.2f} GiB (with the three-pass kernel and its scratch: "
         f"{PREV_DETECT_PEAK_GIB} GiB), reject counts "
         f"{keypoints.reject_counts().sum(0).tolist()}"
     )
-    _require(launches >= cfg.num_octaves, "the main path did not launch the kernel per octave")
-    _require(detect_r1 == cfg.num_octaves, "the main path did not refine once an octave on R1")
-    _require(detect_r2 == cfg.num_octaves, "the main path did not select once an octave on R2")
+    _require(detect_launches["fused_octave"] >= cfg.num_octaves,
+             "the main path did not launch the kernel per octave")
+    _require(detect_launches["newton_ladder"] == cfg.num_octaves,
+             "the main path did not refine once an octave on R1")
+    _require(detect_launches["select_candidates"] == cfg.num_octaves,
+             "the main path did not select once an octave on R2")
     _require(tuple(valid.shape) == (BATCH, n_slots), f"keypoint shape {tuple(valid.shape)}")
     _require(n_valid > 0, "no valid keypoints")
     for name in ("abs_x", "abs_y", "abs_sigma", "value"):
@@ -3961,7 +3876,7 @@ def main() -> int:
         kernel_ms.append(k_ms)
         plain_ms.append(p_ms)
         scales_ms.append(
-            _event_ms(torch, lambda: fused_octave(*args, upsample2x=up2, emit_scales=True), 10)
+            time_ms(lambda: fused_octave(*args, upsample2x=up2, emit_scales=True), 10, device)
         )
         _say(
             f"timing octave {octave} {tuple(base.shape)}{' (upsampled 2x)' if up2 else ''}: "
@@ -4111,23 +4026,16 @@ def main() -> int:
              "detect_and_describe_batched of a CPU tensor did not run on the card")
     del warm
     torch.cuda.reset_peak_memory_stats()
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     described = detect_and_describe_batched(images, cfg)
     torch.cuda.synchronize()
-    describe_launches = {
-        "fused_octave": fused_octave.launches,
-        "window_sample_pair": window_sample_pair.launches,
-        "blur_fused": blur_fused.launches,
-        "newton_ladder": newton_ladder.launches,
-        "select_candidates": select_candidates.launches,
-    }
+    describe_launches = path_launches(before)
     describe_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     dvalid = described.valid
     n_described = int(dvalid.sum())
     _say(
         f"describe path: detect_and_describe_batched {BATCH}x{HEIGHT}x{WIDTH}: launches "
-        f"{describe_launches}, valid descriptors {n_described} of "
+        f"{dict(describe_launches)}, valid descriptors {n_described} of "
         f"{BATCH * cfg.descriptor_pair_capacity()} pair slots "
         f"({cfg.describe_capacity()} keypoint slots per image), peak device memory "
         f"{describe_peak_gib:.2f} GiB"
@@ -4211,11 +4119,10 @@ def main() -> int:
     # The per-octave describe, which ``compact_describe=False`` selects:
     # every slot of every octave, one single-stack slot table per octave.
     per_octave_cfg = dataclasses.replace(cfg, compact_describe=False)
-    window_sample_pair.launches = newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     per_octave = detect_and_describe_batched(images, per_octave_cfg)
     torch.cuda.synchronize()
-    per_octave_launches, per_octave_r1, per_octave_r2 = (
-        window_sample_pair.launches, newton_ladder.launches, select_candidates.launches)
+    per_octave_launches = path_launches(before)
     per_octave_plain = concat_described([
         describe_octave(stack, kp, octave, cfg, sample_fn=window_sample_pair_reference)
         for octave, (stack, kp) in enumerate(zip(stacks, keypoints_list))
@@ -4230,17 +4137,19 @@ def main() -> int:
         for f in ("valid", "octave", "scale_level", "abs_y", "abs_x", "abs_sigma")
     )
     _say(
-        f"per-octave describe (compact_describe=False) {BATCH}x{HEIGHT}x{WIDTH}: sampling "
-        f"launches {per_octave_launches}, R1 {per_octave_r1}, R2 {per_octave_r2}, over "
+        f"per-octave describe (compact_describe=False) {BATCH}x{HEIGHT}x{WIDTH}: launches "
+        f"{dict(per_octave_launches)}, over "
         f"{tuple(per_octave.valid.shape)} pair slots, "
         f"valid {int(per_octave.valid.sum())} (compacting path {n_described}); against the "
         f"plain sampler: slots equal {per_octave_same}, descriptor and theta max abs diff "
         f"{per_octave_err:.3g}"
     )
-    _require(per_octave_launches == 2 * cfg.num_octaves,
+    _require(per_octave_launches["window_sample_pair"] == 2 * cfg.num_octaves,
              "the per-octave describe did not launch the sampling kernel twice per octave")
-    _require(per_octave_r1 == cfg.num_octaves, "the per-octave describe did not refine on R1")
-    _require(per_octave_r2 == cfg.num_octaves, "the per-octave describe did not select on R2")
+    _require(per_octave_launches["newton_ladder"] == cfg.num_octaves,
+             "the per-octave describe did not refine on R1")
+    _require(per_octave_launches["select_candidates"] == cfg.num_octaves,
+             "the per-octave describe did not select on R2")
     _require(per_octave_same, "per-octave describe: slots differ from the plain sampler's")
     _require(per_octave_err <= MAX_ABS_ERR, "per-octave describe differs from the plain sampler's")
     _require(int(per_octave.valid.sum()) >= n_described,
@@ -4251,20 +4160,20 @@ def main() -> int:
     # --- 8. the scale-space path -----------------------------------------------
     n_blurs = _blur_count(cfg)
     build_scale_space(images[:4], cfg, blur="cuda")  # warm-up
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     scale_space = build_scale_space(images, cfg, blur="cuda")
     torch.cuda.synchronize()
-    blur_launches = blur_fused.launches
-    _require(newton_ladder.launches == select_candidates.launches == 0,
+    space_launches = path_launches(before)
+    _require(space_launches["newton_ladder"] == space_launches["select_candidates"] == 0,
              "the scale-space path launched R1 or R2")
     space_err = max((a - b).abs().max().item() for a, b in zip(scale_space, stacks))
     _say(
         f"scale-space path: build_scale_space(blur='cuda') on {tuple(images.shape)}: blur "
-        f"launches {blur_launches} (expected {n_blurs}), max abs diff to the fused "
+        f"launches {space_launches['blur_fused']} (expected {n_blurs}), max abs diff to the fused "
         f"pyramid's stacks {space_err:.3g}"
     )
-    _require(blur_launches == n_blurs, "the scale-space path did not launch one blur per scale")
+    _require(space_launches["blur_fused"] == n_blurs,
+             "the scale-space path did not launch one blur per scale")
     _require(space_err <= MAX_ABS_ERR, "scale space differs from the fused pyramid's stacks")
     _require(all(bool(torch.isfinite(s).all()) for s in scale_space), "scale space not finite")
     # The planes the path hands to the blur, octave by octave.
@@ -4344,7 +4253,7 @@ def main() -> int:
             )
             lib_err = (library_blur(base, sigma) - blur_fused(base, sigma)).abs().max().item()
             _require(lib_err <= 1e-5, f"the library yardstick computes another blur ({lib_err})")
-            l_ms = _event_ms(torch, lambda: library_blur(base, sigma), 5)
+            l_ms = time_ms(lambda: library_blur(base, sigma), 5, device)
             blur_work.append((8 * base.numel(), _blur_flop(base.numel(), radius)))
             bound = _bound(*blur_work[-1])
             blur_ms += k_ms
@@ -4408,12 +4317,11 @@ def main() -> int:
     deep_cfg = SiftConfig()  # 5 octaves x 3 scales
     deep = cfg.num_octaves  # the octave past the paths above
     detect_batched(images[:4], deep_cfg)  # warm-up
-    fused_octave.launches = fused_octave.clamped_launches = 0
-    newton_ladder.launches = select_candidates.launches = 0
+    before = launch_counts()
     deep_keypoints, _ = detect_batched(images, deep_cfg)
     torch.cuda.synchronize()
-    deep_launches = fused_octave.launches, fused_octave.clamped_launches
-    deep_r1, deep_r2 = newton_ladder.launches, select_candidates.launches
+    deep_launches = path_launches(before)
+    deep_clamped = launches_since(before)["fused_octave.clamped"]
     dogs, masks = build_pyramid_fused(images, deep_cfg, octave_fn=fused_octave_reference)
     deep_plain = concat_keypoints(detect_octaves(dogs, deep_cfg, masks)[0])
     torch.cuda.synchronize()
@@ -4426,16 +4334,18 @@ def main() -> int:
     from_deep = int((deep_keypoints.valid & (deep_keypoints.octave == deep)).sum())
     _say(
         f"clamped mode: detect_batched {BATCH}x{HEIGHT}x{WIDTH} at {deep_cfg.num_octaves} "
-        f"octaves x {deep_cfg.scales_per_octave} scales: kernel launches {deep_launches[0]}, "
-        f"of them clamped {deep_launches[1]}, R1 {deep_r1}, R2 {deep_r2}; valid "
+        f"octaves x {deep_cfg.scales_per_octave} scales: launches {dict(deep_launches)}, "
+        f"K1 clamped {deep_clamped}; valid "
         f"{int(deep_keypoints.valid.sum())} vs plain "
         f"{int(deep_plain.valid.sum())} ({from_deep} from octave {deep}), slot agreement "
         f"{agreement:.6f}, p99 position delta {p99:.3g} px"
     )
-    _require(deep_launches == (deep_cfg.num_octaves, 1),
+    _require(deep_launches["fused_octave"] == deep_cfg.num_octaves and deep_clamped == 1,
              "the 5-octave path did not launch the clamped octave kernel once")
-    _require(deep_r1 == deep_cfg.num_octaves, "the 5-octave path did not refine on R1")
-    _require(deep_r2 == deep_cfg.num_octaves, "the 5-octave path did not select on R2")
+    _require(deep_launches["newton_ladder"] == deep_cfg.num_octaves,
+             "the 5-octave path did not refine on R1")
+    _require(deep_launches["select_candidates"] == deep_cfg.num_octaves,
+             "the 5-octave path did not select on R2")
     _require(agreement >= SLOT_AGREEMENT and p99 <= P99_PX,
              "the 5-octave path disagrees with its plain version")
     _require(bool(torch.isfinite(deep_keypoints.abs_x[deep_keypoints.valid]).all()),
@@ -4453,12 +4363,13 @@ def main() -> int:
     _require(octave_tile_plan(*plane, tuple(radii)).clamped
              and blur_tile_plan(*plane, max(radii)).clamped,
              f"octave {deep} {plane} at radius {max(radii)} is not planned clamped")
-    fused_octave.clamped_launches = blur_fused.clamped_launches = 0
+    before = launch_counts()
     got = fused_octave(base, sigmas, deep_spo, thr, emit_scales=True)
     want = fused_octave_reference(base, sigmas, deep_spo, thr, emit_scales=True)
     blurred = blur_fused(base, sigmas[-1])
     torch.cuda.synchronize()
-    _require((fused_octave.clamped_launches, blur_fused.clamped_launches) == (1, 1),
+    clamped = launches_since(before)
+    _require(clamped["fused_octave.clamped"] == clamped["blur_fused.clamped"] == 1,
              "the clamped kernels were not launched")
     clamped_err = max((got[i] - want[i]).abs().max().item() for i in (0, 1, 3))
     clamped_same = (got[2] == want[2]).float().mean().item()
@@ -4518,13 +4429,19 @@ def main() -> int:
         max_err, sample_err = max(max_err, multi_octave_err), max(sample_err, multi_sample_err)
         blur_err = max(blur_err, multi_blur_err)
     else:
-        multi_launches = (0, 0, 0, 0, 0)
+        multi_launches = Counter()
         _say("phase 20 (the sharded paths across cards, one NCCL rank a card) needs several "
              "cards and is not run on one: tools/torch_multicard_phase.py runs it on four")
     probe_records, reach = _phase_probes(torch, smi, device, octave_work, blur_work, sample_work)
     bench_launches, _ = _phase_benchmarks(torch, smi, device, reach["ceilings"])
     scaling_launches = _phase_scaling(torch, smi, device)
 
+    # Each path kernel's launches on the main paths of phases 4-23 (not the
+    # kernel-against-plain checks and timings).
+    main_paths = sum((detect_launches, describe_launches, per_octave_launches, space_launches,
+                      deep_launches, slam_launches, stream_launches, surface_launches,
+                      shard_launches, blur_path_launches, orbax_launches, multi_launches,
+                      bench_launches, scaling_launches), Counter())
     octave_bound_ms = sum(b[0] for b in octave_bounds)
     sample_bound_ms = sum(b[0] for b in sample_bounds)
     record = {
@@ -4534,10 +4451,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "octave.cu",
                 "replaces": PALLAS + "octave.py:437",
-                "launches": describe_launches["fused_octave"] + slam_launches[0]
-                + stream_launches[0] + surface_launches[0] + shard_launches[0]
-                + blur_path_launches[0] + orbax_launches[0] + multi_launches[0]
-                + bench_launches[0] + scaling_launches[0],
+                "launches": main_paths["fused_octave"],
                 "max_abs_err": max_err,
                 "ms": sum(kernel_ms),
                 "plain_ms": sum(plain_ms),
@@ -4552,10 +4466,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "describe.cu",
                 "replaces": PALLAS + "describe.py:288",
-                "launches": describe_launches["window_sample_pair"] + slam_launches[1]
-                + stream_launches[1] + surface_launches[1] + shard_launches[1]
-                + blur_path_launches[1] + orbax_launches[1] + multi_launches[1]
-                + bench_launches[1] + scaling_launches[1],
+                "launches": main_paths["window_sample_pair"],
                 "max_abs_err": sample_err,
                 "ms": sum(sample_ms),
                 "plain_ms": sum(sample_plain_ms),
@@ -4570,10 +4481,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "blur.cu",
                 "replaces": PALLAS + "blur.py:98",
-                "launches": blur_launches + slam_launches[2] + stream_launches[2]
-                + surface_launches[2] + shard_launches[2] + blur_path_launches[2]
-                + orbax_launches[2] + multi_launches[2] + bench_launches[2]
-                + scaling_launches[2],
+                "launches": main_paths["blur_fused"],
                 "max_abs_err": blur_err,
                 "ms": blur_ms,
                 "plain_ms": blur_plain_ms,
@@ -4588,10 +4496,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "select.cu",
                 "replaces": None,
-                "launches": detect_r2 + describe_launches["select_candidates"] + per_octave_r2
-                + deep_r2 + slam_launches[4] + stream_launches[4]
-                + surface_launches[4] + shard_launches[4] + blur_path_launches[4]
-                + orbax_launches[4] + multi_launches[4] + bench_launches[4],
+                "launches": main_paths["select_candidates"],
                 "max_abs_err": 0.0,
                 "ms": select_ms,
                 "plain_ms": select_plain_ms,
@@ -4606,10 +4511,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": CSRC + "refine.cu",
                 "replaces": None,
-                "launches": detect_r1 + describe_launches["newton_ladder"] + per_octave_r1
-                + deep_r1 + slam_launches[3] + stream_launches[3]
-                + surface_launches[3] + shard_launches[3] + blur_path_launches[3]
-                + orbax_launches[3] + multi_launches[3] + bench_launches[3],
+                "launches": main_paths["newton_ladder"],
                 "max_abs_err": 0.0,
                 "ms": refine_ms,
                 "plain_ms": refine_plain_ms,

@@ -15,6 +15,10 @@ ends in ``torch.cuda.synchronize()``, after a warm-up pass (:func:`host_ms`,
 is ``max_memory_allocated`` after ``reset_peak_memory_stats``
 (:func:`peak_gib`).
 
+Launches: a script takes ``launch_counts()`` before its work and reports
+each path kernel's launches since (:func:`path_launches`); on the card a
+path kernel its path did not launch is a failure (:func:`require_launches`).
+
 Runs across ranks (:func:`torchrun_ranks`): each world is started by
 ``python -m torch.distributed.run --standalone`` in a session of its own,
 one rank a card, and each rank writes a JSON record; rank 0's host clock
@@ -24,6 +28,7 @@ times the work from a synchronise plus a barrier to the next
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -36,6 +41,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..ops.kernels import launch_counts, launches_since
 
 
 def probe_device(name: str) -> torch.device:
@@ -134,31 +141,28 @@ def device_entry(device: torch.device):
     return {"name": name or torch.cuda.get_device_name(device), "power_limit": limit or None}
 
 
-def kernel_counts() -> dict:
-    """The launch counts of the port's three path kernels: K1 (the fused
-    octave), K2 (the describe stages' window sampling), K3 (the blur)."""
-    from ..ops.kernels.blur import blur_fused
-    from ..ops.kernels.describe import window_sample_pair
-    from ..ops.kernels.octave import fused_octave
-
-    return {
-        "fused_octave": fused_octave.launches,
-        "window_sample_pair": window_sample_pair.launches,
-        "blur_fused": blur_fused.launches,
-    }
+# The kernels of the frontend's paths: K1 (the fused octave), K3 (the blur),
+# R2 (selection), R1 (refinement) and K2 (the describe stages' sampling).
+PATH_KERNELS = ("fused_octave", "blur_fused", "select_candidates", "newton_ladder",
+                "window_sample_pair")
 
 
-def launches_since(before: dict) -> dict:
-    """Each path kernel's launches since ``before = kernel_counts()``."""
-    return {k: v - before[k] for k, v in kernel_counts().items()}
+def path_launches(before: collections.Counter) -> collections.Counter:
+    """Each path kernel's launches since ``before = launch_counts()``, every
+    one named (0 where it did not launch)."""
+    since = launches_since(before)
+    return collections.Counter({k: since[k] for k in PATH_KERNELS})
 
 
 def path_kernels(blur: str, describe: bool) -> tuple[str, ...]:
-    """The kernels a frontend path launches on the card: K1 on ``blur="fused"``,
-    K3 on ``"cuda"``/``"pallas"``, K2 wherever it describes."""
-    kernels = ("fused_octave",) if blur == "fused" else ()
-    kernels += ("blur_fused",) if blur in ("cuda", "pallas") else ()
-    return kernels + (("window_sample_pair",) if describe else ())
+    """The kernels a frontend path launches on the card: K1 and R2 (which
+    selects from K1's packed plane) on ``blur="fused"``, K3 on
+    ``"cuda"``/``"pallas"``, R1 (which refines float32 DoGs) on every blur
+    but the float64 oracle's ``"exact"``, K2 wherever it describes."""
+    used = {"fused_octave": blur == "fused", "blur_fused": blur in ("cuda", "pallas"),
+            "select_candidates": blur == "fused", "newton_ladder": blur != "exact",
+            "window_sample_pair": describe}
+    return tuple(k for k in PATH_KERNELS if used[k])
 
 
 def require_launches(device: torch.device, launches: dict, kernels, what: str) -> None:

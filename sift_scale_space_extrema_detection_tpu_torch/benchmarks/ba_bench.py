@@ -30,7 +30,7 @@ import torch
 
 from ..sfm import geometry as geo
 from ..sfm.ba import BAState, Observations, bundle_adjust, shard_schur_pieces, solve_reduced
-from . import device_entry, host_ms, kernel_counts, launches_since, peak_gib, probe_device
+from . import device_entry, host_ms, launch_counts, path_launches, peak_gib, probe_device
 
 LARGE = (1000, 100_000, 300)
 BREAKDOWN_REPS = 10
@@ -121,9 +121,9 @@ def run(cams: int = 50, pts: int = 4096, obs_per_cam: int = 512, iters: int = 10
     solve()
     (_, cost), peak = peak_gib(solve, dev)  # the second warm-up, and the peak
     final = float(cost)
-    before = kernel_counts()
+    before = launch_counts()
     dt = host_ms(solve, dev, 1, warmup=0) / 1e3
-    launches = launches_since(before)  # none: the back end runs no hand-written kernel
+    launches = path_launches(before)  # none: the back end runs no hand-written kernel
     flops_iter = flop_model(solver, c, l, n_obs, cg_iters)
     out = {
         "solver": solver,

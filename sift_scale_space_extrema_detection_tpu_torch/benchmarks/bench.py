@@ -34,9 +34,9 @@ from ..models.frontend import detect_batched
 from . import (
     device_entry,
     host_ms,
-    kernel_counts,
-    launches_since,
+    launch_counts,
     path_kernels,
+    path_launches,
     probe_device,
     require_launches,
 )
@@ -82,9 +82,9 @@ def run(batch: int = BATCH, height: int = HEIGHT, width: int = WIDTH, iters: int
     def call():
         return detect_batched(images, cfg, blur, device=dev)
 
-    before = kernel_counts()
+    before = launch_counts()
     keypoints, _ = call()
-    launches = launches_since(before)
+    launches = path_launches(before)
     require_launches(dev, launches, path_kernels(blur, False), f"bench --blur {blur}")
     ms = host_ms(call, dev, iters, warmup=1)  # the call above and this one warm up
     fps = batch / (ms / 1e3)

@@ -40,9 +40,9 @@ from ..models.frontend import detect_and_describe
 from ..ops.matching import match_descriptors
 from . import (
     device_entry,
-    kernel_counts,
-    launches_since,
+    launch_counts,
     path_kernels,
+    path_launches,
     probe_device,
     require_launches,
 )
@@ -145,7 +145,7 @@ def run(ratio: float = 0.8, quality: bool = False, device="cuda", warps=None) ->
             return np.zeros((0, 2)), np.zeros((0, 128), np.float32)
         return np.array([k.pt for k in kp]), desc
 
-    before = kernel_counts()
+    before = launch_counts()
     pa_o, da_o = ours(img)
     pa_c, dc_o = theirs(img)
 
@@ -194,7 +194,7 @@ def run(ratio: float = 0.8, quality: bool = False, device="cuda", warps=None) ->
             f" prec {row_c['precision']:.2f}",
             file=sys.stderr,
         )
-    launches = launches_since(before)
+    launches = path_launches(before)
     require_launches(dev, launches, path_kernels(BLUR, True), "descriptor_bench")
 
     def mean(k, who):

@@ -66,9 +66,9 @@ from ..ops.resize import downsample2x_nn
 from . import (
     device_entry,
     host_ms,
-    kernel_counts,
-    launches_since,
+    launch_counts,
     path_kernels,
+    path_launches,
     peak_gib,
     probe_device,
     require_launches,
@@ -209,9 +209,9 @@ def run(batch: int = 64, iters: int = 3, blur: str = "fused", stages: bool = Fal
     def full():
         return detect_batched(images, cfg, blur, device=dev)
 
-    before = kernel_counts()
+    before = launch_counts()
     (keypoints, _), detect_peak = peak_gib(full, dev)
-    launches["detect"] = launches_since(before)
+    launches["detect"] = path_launches(before)
     require_launches(dev, launches["detect"], path_kernels(blur, False), f"detect --blur {blur}")
     n_kp = int(keypoints.valid.sum())
     del keypoints
@@ -240,9 +240,9 @@ def run(batch: int = 64, iters: int = 3, blur: str = "fused", stages: bool = Fal
         def full_describe():
             return detect_and_describe_batched(images, cfg, blur, device=dev)
 
-        before = kernel_counts()
+        before = launch_counts()
         described, describe_peak = peak_gib(full_describe, dev)
-        launches["describe"] = launches_since(before)
+        launches["describe"] = path_launches(before)
         require_launches(dev, launches["describe"], path_kernels(blur, True),
                          f"describe --blur {blur}")
         n_desc = int(described.valid.sum())

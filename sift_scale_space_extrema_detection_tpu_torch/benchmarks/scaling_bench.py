@@ -9,7 +9,7 @@ too, so both worlds pay the same costs. Three legs, each at world 1 and at
 world ``--devices``, on the same inputs:
 
 - the data-parallel frontend: ``detect_and_describe_data_parallel`` at the
-  port's default ``blur="fused"`` (K1 and K2) on ``--batch-per-device``
+  port's default ``blur="fused"`` (K1, R2, R1 and K2) on ``--batch-per-device``
   frames of 120×160 a rank (``default_rng(0).random``), 2 octaves, 128
   keypoints a trio; one warm-up call, then 3 timed: ``frontend_fps_{n}dev``
   and ``frontend_scaling_efficiency``;
@@ -23,7 +23,7 @@ world ``--devices``, on the same inputs:
   host's cores;
 - composed SLAM: 16 frames of ``slam_bench.render_sequence(default_rng(1),
   16, 320, 240)`` through ``run_slam_from_images(mesh=…,
-  reassoc_window=2, blur="separable", frontend_chunk=16 // n)`` (K2), one
+  reassoc_window=2, blur="separable", frontend_chunk=16 // n)`` (R1 and K2), one
   warm-up and one timed run: ``composed_slam_fps_{n}dev``,
   ``composed_slam_ate`` (world N's, a reading) and
   ``composed_slam_speedup``.
@@ -35,7 +35,7 @@ the frontend's fields are bit-equal across worlds; the BA's reruns are
 bit-equal, world 1's cost is within 1e-3 of ``bundle_adjust``'s and world
 N's within 1e-3 of world 1's; world N's SLAM ATE is within 0.02 of world
 1's; on the card each leg launches its kernels (``launches``: each leg's
-K1/K2/K3 over every call of every rank of both worlds), and no rank builds
+path kernels over every call of every rank of both worlds), and no rank builds
 the kernels (the parent builds them first).
 
 ``--devices`` defaults to the visible cards (the script's 8 was the size of
@@ -74,10 +74,12 @@ from ..parallel import (
 from ..parallel.multihost import mesh_device
 from ..sfm.ba import bundle_adjust
 from . import (
+    PATH_KERNELS,
     device_entry,
     digest,
-    kernel_counts,
-    launches_since,
+    launch_counts,
+    path_kernels,
+    path_launches,
     probe_device,
     rank_clock,
     require_launches,
@@ -124,7 +126,7 @@ def frontend_leg(mesh, dev, images: np.ndarray, repeats: int = REPEATS) -> dict:
     ``repeats`` timed; seconds, launches, the result's digest and each
     frame's."""
     cfg = SiftConfig(**FRONTEND_CFG)
-    before = kernel_counts()
+    before = launch_counts()
     out = detect_and_describe_data_parallel(images, cfg, mesh)
     t0 = rank_clock(dev)
     for _ in range(repeats):
@@ -132,7 +134,7 @@ def frontend_leg(mesh, dev, images: np.ndarray, repeats: int = REPEATS) -> dict:
         sync(dev)
     seconds = rank_clock(dev) - t0
     fields = [getattr(out, f.name) for f in dataclasses.fields(out)]
-    return dict(seconds=seconds / repeats, frames=len(images), launches=launches_since(before),
+    return dict(seconds=seconds / repeats, frames=len(images), launches=path_launches(before),
                 digest=digest(*fields), frame_digests=[digest(*(t[i] for t in fields))
                                                        for i in range(len(images))])
 
@@ -176,13 +178,13 @@ def slam_leg(mesh, dev, world: int, frames: int = SLAM_FRAMES, size=SLAM_SIZE) -
     cfg = SlamConfig(ba_interval=4, ba_window=6)
     kw = dict(mesh=mesh, reassoc_window=2, blur="separable",
               frontend_chunk=max(1, frames // world), device=dev)
-    before = kernel_counts()
+    before = launch_counts()
     run_slam_from_images(images, k_mat, sift, cfg, **kw)
     t0 = rank_clock(dev)
     res = run_slam_from_images(images, k_mat, sift, cfg, **kw)
     seconds = rank_clock(dev) - t0
     return dict(seconds=seconds, frames=frames, ate=evaluate_ate(res, gt_r, gt_t, device=dev),
-                launches=launches_since(before),
+                launches=path_launches(before),
                 digest=digest(res.rotations, res.translations))
 
 
@@ -287,7 +289,7 @@ def summarize(records: dict, devices: int, host_cores: int) -> dict:
     out["devices"] = devices
     out["note"] = NOTE
     out["launches"] = {leg: {k: sum(r[leg]["launches"][k] for ranks in records.values()
-                                    for r in ranks) for k in kernel_counts()}
+                                    for r in ranks) for k in PATH_KERNELS}
                        for leg in ("frontend", "slam")}
     return out
 
@@ -309,9 +311,9 @@ def run(devices=None, batch_per_device: int = 2, device="cuda", *, frame_size=FR
                for world in sorted({1, n})}
     check(records)
     out = summarize(records, n, os.cpu_count())
-    require_launches(dev, out["launches"]["frontend"], ("fused_octave", "window_sample_pair"),
+    require_launches(dev, out["launches"]["frontend"], path_kernels("fused", True),
                      "scaling_bench's frontend")
-    require_launches(dev, out["launches"]["slam"], ("window_sample_pair",),
+    require_launches(dev, out["launches"]["slam"], path_kernels("separable", True),
                      "scaling_bench's composed SLAM")
     out["device"] = device_entry(dev)
     return out

@@ -57,9 +57,9 @@ from ..utils.profile import StageProfile
 from ..utils.synthetic import render_blob_image, textured_blob_field
 from . import (
     device_entry,
-    kernel_counts,
-    launches_since,
+    launch_counts,
     path_kernels,
+    path_launches,
     peak_gib,
     probe_device,
     require_launches,
@@ -307,7 +307,7 @@ def run(frames=40, size="640x480", blur="separable", quality=False, reassoc=2, m
 
     if suite:
         rows = []
-        before = kernel_counts()
+        before = launch_counts()
         for shape in shapes or RENDERS:
             for seed in range(seeds):
                 imgs_s, gr, gtt, km = _cached_render(RENDERS[shape], shape, seed, frames, w, h,
@@ -327,7 +327,7 @@ def run(frames=40, size="640x480", blur="separable", quality=False, reassoc=2, m
                 rows.append(row)
                 if on_row is not None:
                     on_row(row)
-        launches = launches_since(before)
+        launches = path_launches(before)
         require_launches(dev, launches, kernels, "slam_bench --suite")
         summary = {}
         for shape in shapes or RENDERS:
@@ -377,11 +377,11 @@ def run(frames=40, size="640x480", blur="separable", quality=False, reassoc=2, m
         t0 = time.perf_counter()
         run_streaming()  # warm-up pass
         t_first_pass = time.perf_counter() - t0
-        before = kernel_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         (result, latencies), peak = peak_gib(run_streaming, dev)
         dt = time.perf_counter() - t0
-        launches = launches_since(before)
+        launches = path_launches(before)
         require_launches(dev, launches, kernels, "slam_bench --streaming")
         ate = evaluate_ate(result, gt_r, gt_t, device=dev)
         return {
@@ -406,11 +406,11 @@ def run(frames=40, size="640x480", blur="separable", quality=False, reassoc=2, m
     slam(images, k_mat)
     t_first_pass = time.perf_counter() - t0
     prof = StageProfile() if breakdown else None
-    before = kernel_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     result, peak = peak_gib(lambda: slam(images, k_mat, profile=prof), dev)
     dt = time.perf_counter() - t0
-    launches = launches_since(before)
+    launches = path_launches(before)
     require_launches(dev, launches, kernels, f"slam_bench --trajectory {trajectory}")
     ate = evaluate_ate(result, gt_r, gt_t, device=dev)
     dump = os.environ.get("SLAM_BENCH_DUMP")

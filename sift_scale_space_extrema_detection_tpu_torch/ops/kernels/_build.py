@@ -11,6 +11,12 @@ what makes the kernels agree bit for bit with their plain PyTorch versions.
 There is no fallback: without ``nvcc`` or on a failed build,
 :func:`load_kernels` raises.
 
+Every wrapper hands each launch's return code to :func:`check_launch`,
+which raises on an error and else counts the launch by the wrapper's name:
+the process's one record of launches. :func:`launch_counts` takes a
+snapshot of it and :func:`launches_since` the launches since one; nothing
+resets it.
+
 :data:`LOAD_TIMES` says, once the process has loaded the kernels, what
 that took on the host clock: whether ``nvcc`` ran, the seconds of the
 build step (hashing the sources, and ``nvcc`` when it ran) and of loading
@@ -19,6 +25,7 @@ the library.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -44,6 +51,9 @@ NVCC_FLAGS = (
 
 # Filled by the process's first load_kernels(): nvcc_ran, build_s, load_s.
 LOAD_TIMES: dict = {}
+
+# Successful launches by name (check_launch); never reset.
+_LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -158,8 +168,25 @@ def load_kernels() -> ctypes.CDLL:
     return lib
 
 
-def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise ``RuntimeError`` when an entry point returned a CUDA error."""
+def check_launch(lib: ctypes.CDLL, rc: int, what: str, clamped: bool = False) -> None:
+    """Raise ``RuntimeError`` when an entry point returned a CUDA error;
+    else count one launch of ``what``, and one of ``"<what>.clamped"`` where
+    the launch took the kernel's clamped mode."""
     if rc != 0:
         msg = lib.sift_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: kernel launch failed: CUDA error {rc} ({msg})")
+    _LAUNCHES[what] += 1
+    if clamped:
+        _LAUNCHES[f"{what}.clamped"] += 1
+
+
+def launch_counts() -> collections.Counter:
+    """A snapshot of this process's launches by name; a name never
+    launched reads 0."""
+    return collections.Counter(_LAUNCHES)
+
+
+def launches_since(before: collections.Counter) -> collections.Counter:
+    """The launches by name since ``before = launch_counts()``; a name not
+    launched since reads 0."""
+    return launch_counts() - before

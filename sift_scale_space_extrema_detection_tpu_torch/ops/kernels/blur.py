@@ -9,7 +9,7 @@ convolution), which the wrapper runs only for a tensor on the CPU. On a
 CUDA tensor it launches the kernel or raises; it never falls back. The
 TPU kernel's size gate is fast-memory sizing of that chip and is not
 ported: a radius whose window does not fit a block's shared memory takes the
-kernel's clamped mode (counted in ``blur_fused.clamped_launches`` as well),
+kernel's clamped mode (counted as ``blur_fused.clamped`` as well),
 which serves a radius up to about 1,000 on any plane; a larger one on a
 plane of more than about 2,000 rows raises.
 """
@@ -35,8 +35,8 @@ def blur_tile_plan(h: int, w: int, radius: int) -> TilePlan:
 def blur_fused(image: torch.Tensor, sigma: float) -> torch.Tensor:
     """Gaussian blur of ``(..., H, W)`` float32, contiguous, with one sigma.
 
-    CUDA tensors go through the hand-written kernel, counted in
-    ``blur_fused.launches``; CPU tensors through
+    CUDA tensors go through the hand-written kernel, each launch counted by
+    ``_build.check_launch`` as ``blur_fused``; CPU tensors through
     :func:`~..gaussian.blur_separable`. Any other device raises.
     """
     if image.dtype != torch.float32:
@@ -70,11 +70,5 @@ def blur_fused(image: torch.Tensor, sigma: float) -> torch.Tensor:
             out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    check_launch(lib, rc, "blur_fused")
-    blur_fused.launches += 1
-    blur_fused.clamped_launches += plan.clamped
+    check_launch(lib, rc, "blur_fused", clamped=plan.clamped)
     return out
-
-
-blur_fused.launches = 0
-blur_fused.clamped_launches = 0

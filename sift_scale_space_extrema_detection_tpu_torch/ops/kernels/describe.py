@@ -117,8 +117,8 @@ def window_sample_pair(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradient samples ``(gy, gx)`` of every slot (see the module).
 
-    CUDA tensors go through the hand-written kernel, counted in
-    ``window_sample_pair.launches``; CPU tensors through
+    CUDA tensors go through the hand-written kernel, each launch counted by
+    ``_build.check_launch`` as ``window_sample_pair``; CPU tensors through
     :func:`window_sample_pair_reference`. Any other device raises.
     """
     _check(stacks, slots, ys, xs)
@@ -150,8 +150,4 @@ def window_sample_pair(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "window_sample_pair")
-    window_sample_pair.launches += 1
     return gy, gx
-
-
-window_sample_pair.launches = 0

@@ -9,8 +9,8 @@ kernel or raises — it never falls back. The kernel is one launch per
 octave: a block owns a tile of the plane and keeps the Gaussian scales in
 shared memory; :func:`octave_tile_plan` picks the tile from the plane's
 shape and the octave's radii alone (and, for a radius whose window fits no
-tile, the passes' clamped mode, counted in ``fused_octave.clamped_launches``
-as well).
+tile, the passes' clamped mode, counted as ``fused_octave.clamped`` as
+well).
 
 Contract for one octave of a batch (the layout is plane-major; the TPU
 kernel's stripe-major DoG is a TPU write-DMA workaround, not part of it):
@@ -101,9 +101,9 @@ def fused_octave(
 ):
     """All scales, DoG, seed and extrema masks of one octave (see module).
 
-    CUDA tensors go through the hand-written kernel, counted in
-    ``fused_octave.launches`` (and, where the plan is the clamped mode, in
-    ``fused_octave.clamped_launches`` too); CPU tensors through
+    CUDA tensors go through the hand-written kernel, each launch counted by
+    ``_build.check_launch`` as ``fused_octave`` (and, where the plan is the
+    clamped mode, as ``fused_octave.clamped`` too); CPU tensors through
     :func:`fused_octave_reference`. Any other device raises.
     """
     _check_base(base)
@@ -148,13 +148,7 @@ def fused_octave(
             seed.data_ptr(), masks.data_ptr(), int(mdtype == torch.int16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    check_launch(lib, rc, "fused_octave")
-    fused_octave.launches += 1
-    fused_octave.clamped_launches += plan.clamped
+    check_launch(lib, rc, "fused_octave", clamped=plan.clamped)
     if emit_scales:
         return dog, seed, masks, stack
     return dog, seed, masks
-
-
-fused_octave.launches = 0
-fused_octave.clamped_launches = 0

@@ -105,7 +105,7 @@ def probe_write_reference(rows: int, cols: int, device) -> torch.Tensor:
 
 def probe_write(rows: int, cols: int = LANE_W, device="cuda") -> torch.Tensor:
     """A ``(rows, cols)`` float32 array of ``WRITE_VALUE`` (1.25), written by
-    the kernel on a CUDA ``device`` (counted in ``probe_write.launches``),
+    the kernel on a CUDA ``device`` (counted as ``probe_write``),
     by the plain version with ``device="cpu"``."""
     dev = torch.device(device)
     if rows < 1 or cols < 1 or (rows * cols) % 4:
@@ -121,11 +121,7 @@ def probe_write(rows: int, cols: int = LANE_W, device="cuda") -> torch.Tensor:
     with torch.cuda.device(out.device):
         rc = lib.sift_probe_write(out.data_ptr(), out.numel(), WRITE_VALUE, _stream(out.device))
     check_launch(lib, rc, "probe_write")
-    probe_write.launches += 1
     return out
-
-
-probe_write.launches = 0
 
 
 # --- copy ------------------------------------------------------------------
@@ -138,7 +134,7 @@ def probe_copy_reference(x: torch.Tensor) -> torch.Tensor:
 
 def probe_copy(x: torch.Tensor) -> torch.Tensor:
     """A copy of ``x`` (float32, contiguous, a multiple of 4 elements):
-    through the kernel on the card (``probe_copy.launches``), the plain
+    through the kernel on the card (counted as ``probe_copy``), the plain
     version on the CPU."""
     _check_float32("probe_copy", "x", x)
     if x.numel() % 4 or x.numel() == 0:
@@ -151,11 +147,7 @@ def probe_copy(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.sift_probe_copy(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x.device))
     check_launch(lib, rc, "probe_copy")
-    probe_copy.launches += 1
     return out
-
-
-probe_copy.launches = 0
 
 
 # --- read ------------------------------------------------------------------
@@ -190,7 +182,7 @@ def probe_read_reference(x: torch.Tensor) -> torch.Tensor:
 def probe_read(x: torch.Tensor) -> torch.Tensor:
     """The ``(8, 128)`` sum of ``x`` ``(rows, cols)`` float32 (rows a
     multiple of 128, cols of 128): the kernel on the card
-    (``probe_read.launches``, two launches counted as one), the plain
+    (counted as ``probe_read``, two launches counted as one), the plain
     version on the CPU."""
     _check_read(x)
     if _device_kind("probe_read", x) == "cpu":
@@ -204,11 +196,7 @@ def probe_read(x: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), rows, cols, partial.data_ptr(), out.data_ptr(), _stream(x.device)
         )
     check_launch(lib, rc, "probe_read")
-    probe_read.launches += 1
     return out
-
-
-probe_read.launches = 0
 
 
 # --- the tap chain ---------------------------------------------------------
@@ -280,7 +268,7 @@ def tap_chain(x: torch.Tensor, taps: torch.Tensor, mode: str = "f32") -> torch.T
     ``"bf16_carry"`` (bf16 products, float32 sums); ``"bf16_full"`` (bf16
     products and sums); ``"bf16_pair"`` (bf16 products summed in bf16 two
     by two, the pairs summed in float32). The kernel on the card
-    (``tap_chain.launches``), the plain version on the CPU."""
+    (counted as ``tap_chain``), the plain version on the CPU."""
     rows = _check_taps(x, taps, mode)
     if _device_kind("tap_chain", x) == "cpu":
         return tap_chain_reference(x, taps, mode)
@@ -295,10 +283,7 @@ def tap_chain(x: torch.Tensor, taps: torch.Tensor, mode: str = "f32") -> torch.T
             _stream(x.device),
         )
     check_launch(lib, rc, "tap_chain")
-    tap_chain.launches += 1
     return out
 
-
-tap_chain.launches = 0
 
 PROBES = (probe_write, probe_copy, probe_read, tap_chain)

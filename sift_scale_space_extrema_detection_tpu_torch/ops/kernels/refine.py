@@ -89,7 +89,8 @@ def newton_ladder(
     geometry: list[tuple[float, float]],
 ) -> tuple[Keypoints, torch.Tensor]:
     """``(keypoints, live)`` of every candidate slot (see the module),
-    through the hand-written kernel, counted in ``newton_ladder.launches``.
+    through the hand-written kernel, each launch counted by
+    ``_build.check_launch`` as ``newton_ladder``.
     Raises for tensors off a CUDA device and for DoGs not float32."""
     _check(dogs, extrema_list)
     dev = dogs[0].device
@@ -143,7 +144,6 @@ def newton_ladder(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "newton_ladder")
-    newton_ladder.launches += 1
     octave, s, m, n, reason = ints.unbind(0)
     abs_y, abs_x, abs_sigma, omega = floats.unbind(0)
     keypoints = Keypoints(
@@ -151,6 +151,3 @@ def newton_ladder(
         abs_sigma=abs_sigma, value=omega, valid=valid, reject_reason=reason,
     )
     return keypoints, live
-
-
-newton_ladder.launches = 0

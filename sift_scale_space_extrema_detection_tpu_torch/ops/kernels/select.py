@@ -119,9 +119,9 @@ def _check(packed: torch.Tensor, dog: torch.Tensor, capacity: int) -> None:
 
 def select_candidates(packed: torch.Tensor, dog: torch.Tensor, capacity: int) -> Extrema:
     """The first ``capacity`` candidates of each image and its counters (see
-    the module), through the hand-written kernels, counted in
-    ``select_candidates.launches`` (one a call: three kernels in the
-    stream). Raises for what the kernels do not take."""
+    the module), through the hand-written kernels, counted by
+    ``_build.check_launch`` as ``select_candidates`` (one a call: three
+    kernels in the stream). Raises for what the kernels do not take."""
     _check(packed, dog, capacity)
     b, depth, h, w = dog.shape
     n_trios = depth - 2
@@ -146,11 +146,7 @@ def select_candidates(packed: torch.Tensor, dog: torch.Tensor, capacity: int) ->
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "select_candidates")
-    select_candidates.launches += 1
     return Extrema(
         y=y, x=x, scale_level=scale_level, value=value, valid=valid,
         num_candidates=num_candidates, num_low_contrast=num_low_contrast,
     )
-
-
-select_candidates.launches = 0

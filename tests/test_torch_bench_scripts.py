@@ -158,10 +158,13 @@ def test_shared_helpers_on_the_cpu():
     assert len(calls) == 5 and len(times) == 4 and median == float(np.median(times))
     assert benchmarks.peak_gib(lambda: 7, cpu) == (7, None)
     assert benchmarks.device_entry(cpu) == "cpu"
-    assert benchmarks.path_kernels("fused", True) == ("fused_octave", "window_sample_pair")
-    assert benchmarks.path_kernels("pallas", False) == ("blur_fused",)
-    assert benchmarks.path_kernels("separable", True) == ("window_sample_pair",)
-    none = dict.fromkeys(benchmarks.kernel_counts(), 0)
+    assert benchmarks.path_kernels("fused", True) == (
+        "fused_octave", "select_candidates", "newton_ladder", "window_sample_pair")
+    assert benchmarks.path_kernels("pallas", False) == ("blur_fused", "newton_ladder")
+    assert benchmarks.path_kernels("separable", True) == ("newton_ladder", "window_sample_pair")
+    assert benchmarks.path_kernels("exact", False) == ()
+    none = benchmarks.path_launches(benchmarks.launch_counts())
+    assert none == dict.fromkeys(benchmarks.PATH_KERNELS, 0)
     benchmarks.require_launches(cpu, none, ("fused_octave",), "a CPU run")
     with pytest.raises(RuntimeError, match="fused_octave"):
         benchmarks.require_launches(torch.device("cuda"), none, ("fused_octave",), "a card run")

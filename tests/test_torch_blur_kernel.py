@@ -19,6 +19,7 @@ from sift_scale_space_extrema_detection_tpu.models import frontend as jfront
 from sift_scale_space_extrema_detection_tpu.ops import gaussian as jgauss
 from sift_scale_space_extrema_detection_tpu.ops.pallas.blur import blur_pallas
 import sift_scale_space_extrema_detection_tpu_torch as port
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.blur import blur_fused
 from tests.torch_port_helpers import textured_images
 
@@ -43,9 +44,9 @@ SHAPES = {
 def test_blur_matches_pallas_kernel_and_xla_blur(name):
     shape, sigma = SHAPES[name]
     x = np.random.default_rng(0).random(shape).astype(np.float32)
-    before = blur_fused.launches
+    before = launch_counts()
     got = blur_fused(torch.from_numpy(x), sigma).numpy()
-    assert blur_fused.launches == before  # the plain version: no launch on the CPU
+    assert launches_since(before)["blur_fused"] == 0  # the plain version: no launch on the CPU
     pallas = np.asarray(blur_pallas(jnp.asarray(x), sigma, interpret=True))
     xla = np.asarray(jgauss.blur_separable(jnp.asarray(x), sigma))
     np.testing.assert_allclose(got, pallas, rtol=0, atol=PALLAS_ATOL)

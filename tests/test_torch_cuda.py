@@ -8,6 +8,7 @@ a fixture, never at import). On a GPU machine, without jax installed:
 This file imports nothing of JAX, so it runs where jax is absent.
 """
 
+import collections
 import dataclasses
 import json
 import pathlib
@@ -34,6 +35,7 @@ from sift_scale_space_extrema_detection_tpu_torch.ops.gaussian import (
     blur_separable,
     kernel_radius,
 )
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import refine as refine_kernel
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import select as select_kernel
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import tiles
@@ -97,12 +99,13 @@ def test_kernel_matches_plain_version_bit_for_bit(device, shape, up2, octave, sp
     rng = np.random.default_rng(0)
     base = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
     thr = cfg.contrast_prefilter_threshold
-    before = fused_octave.launches, fused_octave.clamped_launches
+    before = launch_counts()
     got = fused_octave(base, sigmas, spo, thr, upsample2x=up2)
     torch.cuda.synchronize()
-    assert fused_octave.launches == before[0] + 1
+    since = launches_since(before)
+    assert since["fused_octave"] == 1
     # The clamped mode is a second kernel: octaves 4 and 5 take it here.
-    assert fused_octave.clamped_launches == before[1] + (octave >= 4)
+    assert since["fused_octave.clamped"] == (octave >= 4)
     want = fused_octave_reference(base, sigmas, spo, thr, upsample2x=up2)
     with_scales = fused_octave(base, sigmas, spo, thr, upsample2x=up2, emit_scales=True)
     want += fused_octave_reference(
@@ -163,10 +166,10 @@ def test_default_config_runs_on_card_and_matches_cpu(device):
     # radius of 116, which takes the octave kernel's clamped mode.
     images = torch.from_numpy(_blob_images(13, 2, 96, 128))
     cfg = port.SiftConfig()
-    before = fused_octave.launches
+    before = launch_counts()
     got, got_extrema = port.detect_batched(images, cfg)
     torch.cuda.synchronize()
-    assert fused_octave.launches == before + cfg.num_octaves
+    assert launches_since(before)["fused_octave"] == cfg.num_octaves
     want, want_extrema = port.detect_batched(images, cfg, device="cpu")
     assert want.valid.sum() > 30
     assert torch.equal(got.valid.cpu(), want.valid)
@@ -191,12 +194,13 @@ BLUR_CASES = [
 def test_blur_kernel_matches_plain_version_bit_for_bit(device, shape, sigma):
     rng = np.random.default_rng(2)
     image = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
-    before = blur_fused.launches, blur_fused.clamped_launches
+    before = launch_counts()
     got = blur_fused(image, sigma)
     torch.cuda.synchronize()
-    assert blur_fused.launches == before[0] + 1
+    since = launches_since(before)
+    assert since["blur_fused"] == 1
     clamped = blur_tile_plan(*shape[-2:], kernel_radius(sigma)).clamped
-    assert clamped == (sigma > 30) and blur_fused.clamped_launches == before[1] + clamped
+    assert clamped == (sigma > 30) and since["blur_fused.clamped"] == clamped
     # Both round every product and sum separately in float32, in tap order.
     assert torch.equal(got, blur_separable(image, sigma))
     # The tap loop on the CPU does the same float32 operations in the same order.
@@ -230,10 +234,10 @@ def _sample_case(device, m, n, seed):
 @pytest.mark.parametrize("m, n", [(77, 256), (5, 3), (301, 37)])
 def test_window_sample_kernel_matches_plain_version_bit_for_bit(device, m, n):
     stacks, table, ys, xs = _sample_case(device, m, n, seed=3)
-    before = window_sample_pair.launches
+    before = launch_counts()
     got = window_sample_pair(stacks, table, ys, xs)
     torch.cuda.synchronize()
-    assert window_sample_pair.launches == before + 1
+    assert launches_since(before)["window_sample_pair"] == 1
     want = window_sample_pair_reference(stacks, table, ys, xs)
     # Differences, products and sums are rounded one by one on both sides.
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -268,10 +272,10 @@ def _blob_images(seed, b, h, w):
 def test_detect_and_describe_on_card_matches_cpu(device):
     images = torch.from_numpy(_blob_images(9, 2, 96, 128))
     cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=128)
-    before = window_sample_pair.launches
+    before = launch_counts()
     got = port.detect_and_describe_batched(images.to(device), cfg)
     torch.cuda.synchronize()
-    assert window_sample_pair.launches == before + 2  # orientation, descriptor
+    assert launches_since(before)["window_sample_pair"] == 2  # orientation, descriptor
     want = port.detect_and_describe_batched(images, cfg, device="cpu")
     assert want.valid.sum() > 30
     # The card's atan2, exp, sin and cos differ from the CPU's in the last
@@ -331,10 +335,10 @@ def test_budgeted_describe_on_card_matches_the_plain_reference(device):
 def test_per_octave_describe_on_card_matches_cpu(device):
     images = torch.from_numpy(_blob_images(11, 2, 96, 128))
     cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=128, compact_describe=False)
-    before = window_sample_pair.launches
+    before = launch_counts()
     got = port.detect_and_describe_batched(images.to(device), cfg)
     torch.cuda.synchronize()
-    assert window_sample_pair.launches == before + 2 * cfg.num_octaves
+    assert launches_since(before)["window_sample_pair"] == 2 * cfg.num_octaves
     want = port.detect_and_describe_batched(images, cfg, device="cpu")
     assert want.valid.sum() > 30 and got.valid.shape == want.valid.shape
     # Held at a rate for the reasons given in the test above.
@@ -601,9 +605,9 @@ def test_cli_on_card_matches_cpu(device, tmp_path, blur, k1, k3):
     path = str(tmp_path / "in.png")
     write_png(path, np.round(_blob_images(21, 1, 96, 128)[0] * 255.0).astype(np.uint8))
     argv = [path, "--octaves", "3", "--descriptors", "--blur", blur]
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    before = launch_counts()
     assert cli.main(argv + ["-o", str(tmp_path / "card")]) == 0
-    assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (k1, 6, k3)
+    assert _launched(before) == dict(fused_octave=k1, window_sample_pair=6, blur_fused=k3)
     assert cli.main(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu", "--no-galleries"]) == 0
     got, got_desc = chip_smoke.cli_records(str(tmp_path / "card"))
     want, want_desc = chip_smoke.cli_records(str(tmp_path / "cpu"))
@@ -656,7 +660,7 @@ def test_evaluate_on_card_agrees_with_cpu(device, tmp_path, capsys):
     root = str(tmp_path / "rgbd_dataset_freiburg_synth")
     write_tum_sequence(root, frames, np.arange(6) / 30.0, rots, ts)
     argv = [root, "--octaves", "3", "--capacity", "256"]
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    before = launch_counts()
     metrics = []
     for device_flag in ("cuda", "cpu"):
         traj = str(tmp_path / f"{device_flag}.txt")
@@ -664,7 +668,7 @@ def test_evaluate_on_card_agrees_with_cpu(device, tmp_path, capsys):
         metrics.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
         assert read_tum_trajectory(traj)[0].shape == (6,)
         if device_flag == "cuda":
-            assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (3, 2, 0)
+            assert _launched(before) == dict(fused_octave=3, window_sample_pair=2, blur_fused=0)
     card, cpu = metrics
     assert card["frames"] == cpu["frames"] == 6
     assert card["ate_rmse"] < 0.25 and abs(card["ate_rmse"] - cpu["ate_rmse"]) < 0.02, metrics
@@ -696,9 +700,9 @@ SHARD_CFG = dict(num_octaves=3, max_keypoints_per_trio=128)
 def test_data_parallel_frontend_on_card_equals_the_batched_one(device, nccl_mesh):
     images = torch.from_numpy(chip_smoke._make_batch(4, 96, 128))
     cfg = port.SiftConfig(**SHARD_CFG)
-    fused_octave.launches = window_sample_pair.launches = blur_fused.launches = 0
+    before = launch_counts()
     got = port.parallel.detect_and_describe_data_parallel(images, cfg, nccl_mesh)
-    assert (fused_octave.launches, window_sample_pair.launches, blur_fused.launches) == (3, 2, 0)
+    assert _launched(before) == dict(fused_octave=3, window_sample_pair=2, blur_fused=0)
     want = port.detect_and_describe_batched(images, cfg)
     assert got.valid.is_cuda and int(got.valid.sum()) > 0
     for f in dataclasses.fields(got):
@@ -780,7 +784,8 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
                                        chip_smoke._make_batch(4, 96, 128), 2, ("fused",))
     launches, octave_err, sample_err, _ = chip_smoke._shard_bars(
         torch, chip_smoke._read_ranks(str(tmp_path), 2), spec, ref, "", "two gloo ranks")
-    assert launches == (8, 4, 0, 8, 8)
+    assert launches == collections.Counter(fused_octave=8, window_sample_pair=4, newton_ladder=8,
+                                           select_candidates=8)
     assert octave_err == sample_err == 0.0
 
 
@@ -791,7 +796,7 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
 def test_a_card_other_than_0_in_one_process(device, blur):
     """``device="cuda:<last card>"`` after a run on card 0, whose constants
     the per-device caches (taps, grids, offsets) already hold: the kernels
-    launch on that card (K1/K2/K3 counts, outputs there), the result equals
+    launch on that card (K1, K2 and K3 counted, outputs there), the result equals
     card 0's bit for bit, and nothing is allocated on card 0, not even for
     a moment (``chip_smoke.py`` phase 20 (g) at 64 × 480×640)."""
     cards = torch.cuda.device_count()
@@ -804,11 +809,12 @@ def test_a_card_other_than_0_in_one_process(device, blur):
     torch.cuda.synchronize(0)
     held = torch.cuda.memory_allocated(0)
     torch.cuda.reset_peak_memory_stats(0)
-    before = _counts()
+    before = launch_counts()
     got = port.detect_and_describe_batched(images, cfg, blur, device=str(other))
     torch.cuda.synchronize(other)
-    launched = tuple(a - b for a, b in zip(_counts(), before))
-    assert launched == ((3, 2, 0) if blur == "fused" else (0, 2, chip_smoke._blur_count(cfg)))
+    assert _launched(before) == (
+        dict(fused_octave=3, window_sample_pair=2, blur_fused=0) if blur == "fused"
+        else dict(fused_octave=0, window_sample_pair=2, blur_fused=chip_smoke._blur_count(cfg)))
     assert torch.cuda.max_memory_allocated(0) == held
     assert int(got.valid.sum()) > 0
     for f in dataclasses.fields(got):
@@ -820,8 +826,10 @@ def test_a_card_other_than_0_in_one_process(device, blur):
 # --- the blur-by-blur frontend and the pooled refinement on the card ----------
 
 
-def _counts():
-    return fused_octave.launches, window_sample_pair.launches, blur_fused.launches
+def _launched(before, names=("fused_octave", "window_sample_pair", "blur_fused")):
+    """The launches of ``names`` since ``before = launch_counts()``, by name."""
+    since = launches_since(before)
+    return {name: since[name] for name in names}
 
 
 def test_per_trio_detect_and_describe_on_card_equal_the_tap_loop(device):
@@ -831,11 +839,11 @@ def test_per_trio_detect_and_describe_on_card_equal_the_tap_loop(device):
     images = torch.from_numpy(_blob_images(13, 2, 96, 128)).to(device)
     cfg = port.SiftConfig(num_octaves=3, scales_per_octave=5, max_keypoints_per_trio=32)
     for call, k2 in ((port.detect_batched, 0), (port.detect_and_describe_batched, 2)):
-        before = _counts()
+        before = launch_counts()
         got = call(images, cfg, "cuda")
         torch.cuda.synchronize()
-        after = _counts()
-        assert tuple(a - b for a, b in zip(after, before)) == (0, k2, chip_smoke._blur_count(cfg))
+        assert _launched(before) == dict(fused_octave=0, window_sample_pair=k2,
+                                         blur_fused=chip_smoke._blur_count(cfg))
         want = call(images, cfg, "separable")
         got, want = (r[0] if isinstance(r, tuple) else r for r in (got, want))
         assert int(want.valid.sum()) > 10
@@ -864,12 +872,12 @@ def test_per_trio_slam_on_card_equals_the_tap_loop(device):
     ])
     sift_cfg = port.SiftConfig(num_octaves=3, max_keypoints_per_trio=256)
     slam_cfg = port.SlamConfig(ba_interval=3, ba_window=6, bootstrap_baseline=2)
-    before = _counts()
+    before = launch_counts()
     got = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="cuda",
                                     frontend_chunk=4)
-    after = _counts()
     per_chunk = chip_smoke._blur_count(sift_cfg)
-    assert tuple(a - b for a, b in zip(after, before)) == (0, 2 * 2, 2 * per_chunk)
+    assert _launched(before) == dict(fused_octave=0, window_sample_pair=2 * 2,
+                                     blur_fused=2 * per_chunk)
     want = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="separable",
                                      frontend_chunk=4)
     assert np.isfinite(got.translations).all()
@@ -1046,10 +1054,10 @@ def test_refinement_kernel_matches_plain_version_bit_for_bit(device, case):
         n = sum(e.y.shape[-1] for e in run_sel)
         caps = refine._kernel_caps(cfg, n, pool_cap)
         geometry = [refine._octave_geometry(first + i, cfg) for i in range(len(run_dogs))]
-        before = refine_kernel.newton_ladder.launches
+        before = launch_counts()
         got, live = refine_kernel.newton_ladder(run_dogs, run_sel, first, cfg, caps, geometry)
         torch.cuda.synchronize()
-        assert refine_kernel.newton_ladder.launches == before + 1
+        assert launches_since(before)["newton_ladder"] == 1
         with tracing(spans=False, counters=True) as session:
             want = refine.newton_ladder_reference(run_dogs, run_sel, first, cfg, pool_cap)
         for field in dataclasses.fields(want):
@@ -1063,7 +1071,7 @@ def test_refinement_kernel_matches_plain_version_bit_for_bit(device, case):
         assert live.sum(0).tolist() == want_live
         if len(run_dogs) == 1 and pool_cap is None:  # the public route: the kernel
             routed = refine.refine_keypoints(run_dogs[0], run_sel[0], first, cfg)
-            assert refine_kernel.newton_ladder.launches == before + 2
+            assert launches_since(before)["newton_ladder"] == 2
             assert torch.equal(routed.reject_reason, want.reject_reason)
         reasons += torch.bincount(want.reject_reason.flatten() + 1, minlength=7)
         caps = torch.tensor(caps, device=device)
@@ -1095,10 +1103,10 @@ def test_the_kernel_route_casts_the_candidates_as_the_tensor_code_does(device):
         value=extrema.value.double(), valid=extrema.valid.to(torch.uint8),
     )
     cfg = port.SiftConfig(num_octaves=4, scales_per_octave=5, max_keypoints_per_trio=512)
-    before = refine_kernel.newton_ladder.launches
+    before = launch_counts()
     got = refine.refine_keypoints(dog, wide, 1, cfg)
     torch.cuda.synchronize()
-    assert refine_kernel.newton_ladder.launches == before + 1
+    assert launches_since(before)["newton_ladder"] == 1
     want = refine.newton_ladder_reference([dog], [wide], 1, cfg)
     narrow = refine.refine_keypoints(dog, extrema, 1, cfg)
     assert torch.equal(want.reject_reason, narrow.reject_reason)
@@ -1194,10 +1202,10 @@ def test_selection_kernel_matches_plain_version_bit_for_bit(device, case):
         if refine_cap is not None:
             capacities.add(refine_cap)
         for capacity in sorted(capacities):
-            before = select_kernel.select_candidates.launches
+            before = launch_counts()
             got = select_kernel.select_candidates(packed, dog, capacity)
             torch.cuda.synchronize()
-            assert select_kernel.select_candidates.launches == before + 1
+            assert launches_since(before)["select_candidates"] == 1
             want = select_refine_candidates_reference(packed, dog, cfg, capacity)
             for field in dataclasses.fields(want):
                 g, wv = getattr(got, field.name), getattr(want, field.name)
@@ -1260,14 +1268,15 @@ def test_memory_probes_match_their_plain_versions_bit_for_bit(device, rows, cols
     ).to(device)
     x = base[offset:].view(rows, cols)
     readable = rows % 128 == 0 and cols % 128 == 0
-    before = [p.launches for p in probes.PROBES[:3]]
+    before = launch_counts()
     # Each output where a buffer of NaN was just freed, so an element the
     # kernel missed cannot hold a value left there by an earlier output.
     wrote = chip_smoke._on_poison(torch, rows * cols, device, lambda: probes.probe_write(rows, cols, device))
     copied = chip_smoke._on_poison(torch, rows * cols, device, lambda: probes.probe_copy(x))
     read = probes.probe_read(x) if readable else None
     torch.cuda.synchronize()
-    assert [p.launches for p in probes.PROBES[:3]] == [n + 1 for n in before[:2]] + [before[2] + readable]
+    assert _launched(before, ("probe_write", "probe_copy", "probe_read")) == dict(
+        probe_write=1, probe_copy=1, probe_read=int(readable))
     assert wrote.device == device
     assert torch.equal(wrote, probes.probe_write_reference(rows, cols, device))
     assert torch.equal(copied, x)
@@ -1280,7 +1289,7 @@ def test_probes_refuse_a_view_off_their_access_boundary_on_the_card(device):
     from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
 
     base = torch.ones(1 + 128 * 128, device=device)
-    before = [p.launches for p in probes.PROBES]
+    before = launch_counts()
     with pytest.raises(ValueError):
         probes.probe_copy(base[1:9])
     with pytest.raises(ValueError):
@@ -1288,7 +1297,7 @@ def test_probes_refuse_a_view_off_their_access_boundary_on_the_card(device):
     with pytest.raises(ValueError):
         probes.tap_chain(base[1 : 1 + 14 * 4].view(14, 4), probes.probe_taps().to(device), "bf16_full")
     torch.cuda.synchronize()
-    assert [p.launches for p in probes.PROBES] == before
+    assert not launches_since(before)
 
 
 @pytest.mark.parametrize("rows, width", [(16, 128), (5, 6), (256, 1024), (3, 1000)])
@@ -1299,10 +1308,10 @@ def test_tap_chain_kernel_matches_its_plain_version(device, mode, rows, width):
 
     x = probe_input(rows, width, seed=rows).to(device)
     taps = probes.probe_taps().to(device)
-    before = probes.tap_chain.launches
+    before = launch_counts()
     got = probes.tap_chain(x, taps, mode)
     torch.cuda.synchronize()
-    assert probes.tap_chain.launches == before + 1
+    assert launches_since(before)["tap_chain"] == 1
     want = probes.tap_chain_reference(x, taps, mode)
     err = (got.double() - want.double()).abs()
     assert bool((err <= chip_smoke.tap_tolerance(torch, x, taps, mode)).all()), err.max().item()

@@ -23,6 +23,7 @@ from sift_scale_space_extrema_detection_tpu.config import SiftConfig as JaxConfi
 from sift_scale_space_extrema_detection_tpu.ops.pallas import describe as jdescribe
 import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import _inbounds_mask
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels.describe import (
     window_sample_pair,
     window_sample_pair_reference,
@@ -131,10 +132,10 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(stacks):
     cfg, stacks = stacks
     table, ys, xs, _, _ = _slots_and_coords(cfg, stacks, separable=False)
     args = (stacks, torch.from_numpy(table), torch.from_numpy(ys), torch.from_numpy(xs))
-    before = window_sample_pair.launches
+    before = launch_counts()
     got = window_sample_pair(*args)
     want = window_sample_pair_reference(*args)
-    assert window_sample_pair.launches == before  # no kernel launch on the CPU
+    assert launches_since(before)["window_sample_pair"] == 0  # no kernel launch on the CPU
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

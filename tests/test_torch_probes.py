@@ -40,7 +40,11 @@ from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
     slam_bench,
     tap_probe,
 )
-from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import probes
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import (
+    launch_counts,
+    launches_since,
+    probes,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 BW_SOURCE = REPO / "benchmarks" / "bw_probe.py"
@@ -275,13 +279,14 @@ def test_bf16_plain_versions_round_each_operation_once(mode):
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu_without_a_launch():
-    before = [p.launches for p in probes.PROBES]
+    before = launch_counts()
     x = torch.ones((128, 128))
     probes.probe_write(8, 16, device="cpu")
     probes.probe_copy(x)
     probes.probe_read(x)
     probes.tap_chain(torch.ones((14, 4)), probes.probe_taps(), "bf16_full")
-    assert [p.launches for p in probes.PROBES] == before
+    since = launches_since(before)
+    assert [since[p.__name__] for p in probes.PROBES] == [0] * len(probes.PROBES)
 
 
 @pytest.mark.parametrize(

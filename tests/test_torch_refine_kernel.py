@@ -14,6 +14,7 @@ import sift_scale_space_extrema_detection_tpu_torch as port
 from sift_scale_space_extrema_detection_tpu_torch.core.types import Extrema
 from sift_scale_space_extrema_detection_tpu_torch.models import frontend as fe
 from sift_scale_space_extrema_detection_tpu_torch.ops import refine
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import refine as refine_kernel
 from sift_scale_space_extrema_detection_tpu_torch.utils.profile import tracing
 from tests.torch_port_helpers import textured_images
@@ -71,13 +72,13 @@ def test_cpu_tensors_take_the_tensor_code_and_count_its_steps(route):
     pooled = route in ("pool", "tail_pool")
     n = sum(e.y.shape[-1] for e in selected)
     pool_cap = refine._pool_cap(CFG, n) if pooled else None
-    launches = refine_kernel.newton_ladder.launches
+    before = launch_counts()
     with tracing(spans=False, counters=True) as session:
         if pooled:
             got = refine.refine_keypoints_multi(dogs, selected, CFG, octave_offset=first)
         else:
             got = refine.refine_keypoints(dogs[0], selected[0], first, CFG)
-    assert refine_kernel.newton_ladder.launches == launches
+    assert launches_since(before)["newton_ladder"] == 0
     _equal(got, refine.newton_ladder_reference(dogs, selected, first, CFG, pool_cap))
     c = session.counters
     assert c["refine.route.plain"] == 1 and "refine.route.kernel" not in c
@@ -154,10 +155,10 @@ def test_the_route_depends_on_dtype_and_device_alone():
     dogs, selected = _selected(b=1)
     dogs64 = [d.double() for d in dogs]
     sel64 = [dataclasses.replace(e, value=e.value.double()) for e in selected]
-    launches = refine_kernel.newton_ladder.launches
+    before = launch_counts()
     with tracing(spans=False, counters=True) as session:
         got = [refine.refine_keypoints(d, e, o, CFG) for o, (d, e) in enumerate(zip(dogs64, sel64))]
-    assert refine_kernel.newton_ladder.launches == launches
+    assert launches_since(before)["newton_ladder"] == 0
     assert session.counters["refine.route.plain"] == CFG.num_octaves
     assert "refine.route.kernel" not in session.counters
     assert got[0].abs_x.dtype == torch.float64 and any(k.valid.any() for k in got)

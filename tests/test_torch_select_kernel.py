@@ -15,6 +15,7 @@ import sift_scale_space_extrema_detection_tpu_torch as port
 from port_bench.reference import extrema as frozen
 from sift_scale_space_extrema_detection_tpu_torch.models import frontend as fe
 from sift_scale_space_extrema_detection_tpu_torch.ops import extrema
+from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import launch_counts, launches_since
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import select as select_kernel
 from sift_scale_space_extrema_detection_tpu_torch.utils.profile import tracing
 from tests.torch_port_helpers import textured_images
@@ -41,11 +42,11 @@ def _equal(a, b):
 def test_cpu_and_float64_take_the_tensor_code_and_launch_nothing(dtype):
     dogs, masks = _planes()
     dogs = [d.to(dtype) for d in dogs]
-    launches = select_kernel.select_candidates.launches
+    before = launch_counts()
     with tracing(spans=False, counters=True) as session:
         got = [extrema.select_refine_candidates(m, d, CFG, CFG.refine_capacity(o))
                for o, (d, m) in enumerate(zip(dogs, masks))]
-    assert select_kernel.select_candidates.launches == launches
+    assert launches_since(before)["select_candidates"] == 0
     assert session.counters["select.route.plain"] == CFG.num_octaves
     assert "select.route.kernel" not in session.counters
     for o, (d, m) in enumerate(zip(dogs, masks)):
@@ -118,10 +119,10 @@ def test_the_wrapper_refuses_what_the_kernels_do_not_take(bad, error, message):
     """The wrapper takes CUDA tensors of the kernels' types alone;
     ops/extrema.py routes the rest to the tensor code."""
     packed, dog = bad()
-    launches = select_kernel.select_candidates.launches
+    before = launch_counts()
     with pytest.raises(error, match=message):
         select_kernel.select_candidates(packed, dog, 16)
-    assert select_kernel.select_candidates.launches == launches
+    assert launches_since(before)["select_candidates"] == 0
 
 
 # (batch, DoG planes, h, w, word bytes) -> (tile, tiles an image): every

@@ -56,7 +56,7 @@ def main() -> int:
     launches, octave_err, sample_err, blur_err = chip_smoke._phase_multicard(
         torch, port, smi, torch.device("cuda", 0))
     print(f"phase 20 {time.perf_counter() - t0:.1f} s on {cards} cards: the ranks' main paths "
-          f"launched K1/K2/K3/R1/R2 {launches}; largest kernel vs plain differences K1 "
+          f"launched {dict(launches)}; largest kernel vs plain differences K1 "
           f"{octave_err}, K2 {sample_err}, K3 {blur_err}", flush=True)
 
     world = chip_smoke.MULTICARD_WORLD

@@ -46,8 +46,7 @@ def main() -> int:
           f"{int(np.sum(orbit.landmark_valid))}", flush=True)
     t0 = time.perf_counter()
     launches = chip_smoke._phase_orbax(torch, port, smi, device, orbit_ate)
-    print(f"phase 19 {time.perf_counter() - t0:.1f} s, launches K1/K2/K3/R1/R2 {launches}",
-          flush=True)
+    print(f"phase 19 {time.perf_counter() - t0:.1f} s, launches {dict(launches)}", flush=True)
     return 0
 
 

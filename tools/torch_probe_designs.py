@@ -57,7 +57,7 @@ sys.path.insert(0, str(REPO))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from sift_scale_space_extrema_detection_tpu_torch.benchmarks import card_smi  # noqa: E402
+from sift_scale_space_extrema_detection_tpu_torch.benchmarks import card_smi, time_ms  # noqa: E402
 from sift_scale_space_extrema_detection_tpu_torch.ops.kernels import _build, probes  # noqa: E402
 
 SOURCE = REPO / "tools" / "probe_designs.cu"
@@ -161,8 +161,7 @@ def turns(fns: dict, reps: int) -> dict:
     got = {name: [] for name in fns}
     for name in [*fns, *reversed(fns)]:
         held_ms, host_us, held = chip_smoke._held_ms(torch, fns[name], reps)
-        fns[name]()
-        ahead_ms = chip_smoke._event_ms(torch, fns[name], reps)
+        ahead_ms = time_ms(fns[name], reps, torch.device("cuda"))
         got[name].append((held_ms, ahead_ms, host_us, held))
     return {name: {"held_ms": sum(t[0] for t in r) / 2, "ahead_ms": sum(t[1] for t in r) / 2,
                    "host_us": sum(t[2] for t in r) / 2, "held": all(t[3] for t in r)}
@@ -171,8 +170,8 @@ def turns(fns: dict, reps: int) -> dict:
 
 def copy_into(src: torch.Tensor, dst: torch.Tensor):
     """``fn()``: the port's copy kernel launched straight from ``src`` into
-    ``dst`` (no wrapper: nothing allocated, nothing counted); returns
-    ``dst``."""
+    ``dst`` (no wrapper: nothing allocated; counted as ``probe_copy``);
+    returns ``dst``."""
     lib = _build.load_kernels()
 
     def fn():

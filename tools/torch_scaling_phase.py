@@ -2,7 +2,7 @@
 """Run ``chip_smoke.py``'s phase 23 alone on one card: ``benchmarks.scatter_probe``
 at the script's size and at 16x its observations and landmarks, and
 ``benchmarks.scaling_bench --devices 1`` through its torchrun route on one
-NCCL rank (K1 and K2 launched by its ranks). Builds the kernels first, so
+NCCL rank (each leg's path kernels launched by its ranks). Builds the kernels first, so
 that the rank loads them.
 
 Run from the repository root: ``python3 tools/torch_scaling_phase.py``

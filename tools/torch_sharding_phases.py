@@ -42,7 +42,7 @@ def main() -> int:
     t1 = time.perf_counter()
     launches, _, _ = chip_smoke._phase_sharding(torch, port, smi, dev, refs)
     print(f"phase 15 {t1 - t0:.1f} s, phase 17 {time.perf_counter() - t1:.1f} s, phase 17's "
-          f"launches K1/K2/K3/R1/R2 {launches}", flush=True)
+          f"launches {dict(launches)}", flush=True)
     return 0
 
 
