@@ -3,7 +3,7 @@
 The detect and describe paths of ``sift_scale_space_extrema_detection_tpu``
 (Gaussian scale space, DoG, 26-neighbour extrema, quadratic refinement,
 orientation assignment, 128-D descriptors) in PyTorch, with the fused
-octave kernel, the window-sampling kernel of the describe stages and the
+octave kernel, the describe stages' kernels and the
 stand-alone blur hand-written in CUDA for Hopper (sm_90a); the float64
 ``blur="exact"`` leg that is bit-faithful to the reference oracle
 (``utils/oracle.py``); and the geometry back end: descriptor matching,

@@ -29,7 +29,9 @@ times the work from a synchronise plus a barrier to the next
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
+import math
 import json
 import os
 import signal
@@ -142,9 +144,11 @@ def device_entry(device: torch.device):
 
 
 # The kernels of the frontend's paths: K1 (the fused octave), K3 (the blur),
-# R2 (selection), R1 (refinement) and K2 (the describe stages' sampling).
+# R2 (selection), R1 (refinement), R3 and R4 (the describe stages), and K2
+# (window sampling), which the describe stages launch only for a caller's
+# own sampler: 0 on the paths.
 PATH_KERNELS = ("fused_octave", "blur_fused", "select_candidates", "newton_ladder",
-                "window_sample_pair")
+                "orient_slots", "describe_pairs", "window_sample_pair")
 
 
 def path_launches(before: collections.Counter) -> collections.Counter:
@@ -154,14 +158,16 @@ def path_launches(before: collections.Counter) -> collections.Counter:
     return collections.Counter({k: since[k] for k in PATH_KERNELS})
 
 
-def path_kernels(blur: str, describe: bool) -> tuple[str, ...]:
+def path_kernels(blur: str, describe: bool, upright: bool = False) -> tuple[str, ...]:
     """The kernels a frontend path launches on the card: K1 and R2 (which
     selects from K1's packed plane) on ``blur="fused"``, K3 on
     ``"cuda"``/``"pallas"``, R1 (which refines float32 DoGs) on every blur
-    but the float64 oracle's ``"exact"``, K2 wherever it describes."""
+    but the float64 oracle's ``"exact"``, R4 wherever it describes and R3
+    wherever it also orients (not ``upright``)."""
     used = {"fused_octave": blur == "fused", "blur_fused": blur in ("cuda", "pallas"),
             "select_candidates": blur == "fused", "newton_ladder": blur != "exact",
-            "window_sample_pair": describe}
+            "orient_slots": describe and not upright, "describe_pairs": describe,
+            "window_sample_pair": False}
     return tuple(k for k in PATH_KERNELS if used[k])
 
 
@@ -173,6 +179,84 @@ def require_launches(device: torch.device, launches: dict, kernels, what: str) -
     missing = [k for k in kernels if not launches.get(k)]
     if missing:
         raise RuntimeError(f"{what}: launched {missing} no time on the card ({launches})")
+
+
+@contextlib.contextmanager
+def describe_stage_calls(on_stage=None):
+    """Within the block, each call of the describe layer's two stages
+    (``ops/descriptor.py::_orientation_stage``, ``_descriptor_stage``) is
+    recorded as ``(name, args)``, ``name`` ``"orientation"`` or
+    ``"descriptor"``, after ``on_stage(name)`` when given (a synchronise and
+    a mark); yields the list. The stages run as they would, on their own
+    route."""
+    from ..ops import descriptor
+
+    attrs = {"orientation": "_orientation_stage", "descriptor": "_descriptor_stage"}
+    stages = {name: getattr(descriptor, attr) for name, attr in attrs.items()}
+    calls = []
+
+    def recorded(name):
+        def stage(*args):
+            if on_stage is not None:
+                on_stage(name)
+            calls.append((name, args))
+            return stages[name](*args)
+
+        return stage
+
+    for name, attr in attrs.items():
+        setattr(descriptor, attr, recorded(name))
+    try:
+        yield calls
+    finally:
+        for name, attr in attrs.items():
+            setattr(descriptor, attr, stages[name])
+
+
+def describe_stage_gaps(calls) -> dict:
+    """Each recorded stage call (:func:`describe_stage_calls`) run again on
+    both routes, the kernels (R3, R4; twice) and the tensor code with K2, on
+    the same slots (the descriptor stage on the same θ): the slots and
+    valid entries, the entries whose validity differs (near ties at the
+    peak ratio or between two bins), the circular θ gaps (median, largest)
+    over entries valid on both, the largest L2 gap of a descriptor, whether
+    the kernels give θ 0 where invalid and zero descriptors on invalid
+    slots, and whether their rerun is bit-equal."""
+    from ..ops import descriptor
+    from ..ops.kernels.describe import window_sample_pair
+
+    out = dict(orient_slots=0, orient_valid=0, orient_valid_differ=0, pair_slots=0,
+               pairs=0, desc_l2_max=0.0, invalid_zero=True, rerun_equal=True)
+    gaps = []
+    for name, args in calls:
+        if name == "orientation":
+            slots, cfg, _ = args
+            (tk, vk), (tk2, vk2) = (descriptor._orientation_stage(slots, cfg, None)
+                                    for _ in range(2))
+            tp, vp = descriptor._orientation_stage(slots, cfg, window_sample_pair)
+            gap = (tk - tp).abs()[vk & vp].double()
+            gaps.append(torch.minimum(gap, 2 * math.pi - gap))
+            out["orient_slots"] += slots.table.shape[0]
+            out["orient_valid"] += int(vp.sum())
+            out["orient_valid_differ"] += int((vk != vp).sum())
+            out["invalid_zero"] &= not bool(tk[~vk].any())
+            out["rerun_equal"] &= torch.equal(tk, tk2) and torch.equal(vk, vk2)
+        else:
+            slots, theta, cfg, _ = args
+            dk, dk2 = (descriptor._descriptor_stage(slots, theta, cfg, None) for _ in range(2))
+            dp = descriptor._descriptor_stage(slots, theta, cfg, window_sample_pair)
+            valid = slots.table[:, 3] != 0
+            out["pair_slots"] += slots.table.shape[0]
+            out["pairs"] += int(valid.sum())
+            if dk.shape[0]:
+                out["desc_l2_max"] = max(out["desc_l2_max"],
+                                         float((dk - dp).norm(dim=-1).max()))
+            out["invalid_zero"] &= not bool(dk[~valid].any())
+            out["rerun_equal"] &= torch.equal(dk, dk2)
+    gap = torch.cat(gaps) if gaps else torch.zeros(0, dtype=torch.float64)
+    out["theta_median"] = float(gap.median()) if gap.numel() else 0.0
+    out["theta_max"] = float(gap.max()) if gap.numel() else 0.0
+    return out
 
 
 def digest(*tensors) -> str:

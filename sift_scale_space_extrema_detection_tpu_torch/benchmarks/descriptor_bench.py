@@ -19,7 +19,7 @@ scored, per pipeline, by the same protocol (:func:`score_warp`):
 the JAX package's default) and ``match_descriptors``; theirs is
 ``cv2.SIFT_create`` with a brute-force 2-NN ratio test. ``--quality`` takes
 ``SiftConfig.quality()`` (OpenCV-equivalent thresholds). The describe
-kernel (K2) runs in every describe on the card.
+stages' kernels (R3, R4) run in every describe on the card.
 
 Run: ``python -m sift_scale_space_extrema_detection_tpu_torch.benchmarks.descriptor_bench
 [--ratio 0.8] [--quality] [--device cuda|cpu]``. Prints

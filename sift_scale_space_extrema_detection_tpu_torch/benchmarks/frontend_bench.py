@@ -60,10 +60,10 @@ from ..models.frontend import (
 )
 from ..ops.descriptor import describe_compact
 from ..ops.gaussian import kernel_radius
-from ..ops.kernels.describe import window_sample_pair
 from ..ops.kernels.octave import fused_octave
 from ..ops.resize import downsample2x_nn
 from . import (
+    describe_stage_calls,
     device_entry,
     host_ms,
     launch_counts,
@@ -309,31 +309,35 @@ def run(batch: int = 64, iters: int = 3, blur: str = "fused", stages: bool = Fal
 def _describe_stages(images, cfg, blur, iters, dev) -> dict:
     """The describe path's stages with a synchronise between them, mean ms
     over ``iters`` runs after one warm-up: the pyramid with its Gaussian
-    stacks, selection + refinement, compaction + orientation, descriptors."""
+    stacks, selection + refinement, compaction + orientation, descriptors.
+    The route is the path's own (the kernels on the card): the descriptor
+    stage is marked where ``describe_compact`` enters it
+    (:func:`describe_stage_calls`)."""
     marks, totals = [], [0.0] * 4
 
-    def marking(stacks, table, ys, xs):
-        sync(dev)
-        marks.append(time.perf_counter())
-        return window_sample_pair(stacks, table, ys, xs)
+    def mark(name):
+        if name == "descriptor":
+            sync(dev)
+            marks.append(time.perf_counter())
 
-    for i in range(iters + 1):
-        marks.clear()
-        sync(dev)
-        t0 = time.perf_counter()
-        dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
-        sync(dev)
-        t1 = time.perf_counter()
-        _, selected = _select_candidates(dogs, cfg, masks)
-        keypoints = _refine_per_octave(dogs, selected, cfg)
-        sync(dev)
-        t2 = time.perf_counter()
-        describe_compact(stacks, keypoints, cfg, sample_fn=marking)
-        sync(dev)
-        t3 = time.perf_counter()
-        if i:
-            for k, dt in enumerate((t1 - t0, t2 - t1, marks[1] - t2, t3 - marks[1])):
-                totals[k] += dt
+    with describe_stage_calls(mark):
+        for i in range(iters + 1):
+            marks.clear()
+            sync(dev)
+            t0 = time.perf_counter()
+            dogs, masks, stacks = _pyramid(images, cfg, blur, emit_scales=True)
+            sync(dev)
+            t1 = time.perf_counter()
+            _, selected = _select_candidates(dogs, cfg, masks)
+            keypoints = _refine_per_octave(dogs, selected, cfg)
+            sync(dev)
+            t2 = time.perf_counter()
+            describe_compact(stacks, keypoints, cfg)
+            sync(dev)
+            t3 = time.perf_counter()
+            if i:
+                for k, dt in enumerate((t1 - t0, t2 - t1, marks[0] - t2, t3 - marks[0])):
+                    totals[k] += dt
     names = ("pyramid_with_stacks", "selection_refinement", "orientation", "descriptor")
     return {n: round(1e3 * t / iters, 2) for n, t in zip(names, totals)}
 

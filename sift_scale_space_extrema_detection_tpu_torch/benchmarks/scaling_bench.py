@@ -9,7 +9,7 @@ too, so both worlds pay the same costs. Three legs, each at world 1 and at
 world ``--devices``, on the same inputs:
 
 - the data-parallel frontend: ``detect_and_describe_data_parallel`` at the
-  port's default ``blur="fused"`` (K1, R2, R1 and K2) on ``--batch-per-device``
+  port's default ``blur="fused"`` (K1, R2, R1, R3 and R4) on ``--batch-per-device``
   frames of 120×160 a rank (``default_rng(0).random``), 2 octaves, 128
   keypoints a trio; one warm-up call, then 3 timed: ``frontend_fps_{n}dev``
   and ``frontend_scaling_efficiency``;
@@ -23,7 +23,7 @@ world ``--devices``, on the same inputs:
   host's cores;
 - composed SLAM: 16 frames of ``slam_bench.render_sequence(default_rng(1),
   16, 320, 240)`` through ``run_slam_from_images(mesh=…,
-  reassoc_window=2, blur="separable", frontend_chunk=16 // n)`` (R1 and K2), one
+  reassoc_window=2, blur="separable", frontend_chunk=16 // n)`` (R1, R3 and R4), one
   warm-up and one timed run: ``composed_slam_fps_{n}dev``,
   ``composed_slam_ate`` (world N's, a reading) and
   ``composed_slam_speedup``.

@@ -295,7 +295,7 @@ def run(frames=40, size="640x480", blur="separable", quality=False, reassoc=2, m
         loop_topk=loop_topk,
         device=dev,
     )
-    kernels = path_kernels(blur, True)
+    kernels = path_kernels(blur, True, upright)
 
     def upload(images):
         return images if f32_upload else to_uint16(images)

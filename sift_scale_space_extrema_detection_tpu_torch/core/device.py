@@ -47,10 +47,10 @@ def on_device(value, device: Device):
 def require_full_float32_matmul(device: torch.device) -> None:
     """Raise where a float32 matrix product on ``device`` would run in TF32.
 
-    The histograms of the describe stages, the descriptor distances and the
-    Schur products are float32 matrix products whose results feed
-    comparisons (a ratio test, an accept test); TF32 keeps about three
-    decimal digits."""
+    The histograms of the describe stages' tensor code (their plain route),
+    the descriptor distances and the Schur products are float32 matrix
+    products whose results feed comparisons (a ratio test, an accept test);
+    TF32 keeps about three decimal digits."""
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "this path computes float32 matrix products in full precision: "

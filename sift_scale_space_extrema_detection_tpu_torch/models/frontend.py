@@ -18,9 +18,10 @@ the JAX package's ``blur`` argument:
   ``blur="separable"`` default, where capacity saturates another keypoint
   set than the per-octave cap's.
 
-Selection, Newton refinement and the describe stages' histogram math are
-tensor code over the whole batch, and the describe stages sample through
-the window-sampling kernel (``ops/kernels/describe.py``).
+Selection, Newton refinement and each describe stage run as hand-written
+CUDA kernels on float32 CUDA tensors (``ops/kernels/select.py``,
+``refine.py``, ``histograms.py``), and as tensor code over the whole batch
+elsewhere.
 
 Each layer's work runs in a span (``utils/profile.py``, on only inside
 ``tracing()``): ``sift.frontend`` around a batched entry, ``sift.pyramid``,
@@ -342,7 +343,7 @@ def detect_and_describe_batched(
         _, selected = _select_candidates(dogs, cfg, masks)
         keypoints = _refine_per_octave(dogs, selected, cfg)
         if stacks[0].dtype == torch.float64:
-            # The describe stages are float32 (the sampling kernel's contract):
+            # The describe stages are float32 (the describe kernels' contract):
             # a float64 scale space is described from its float32 rounding.
             stacks = [s.to(torch.float32) for s in stacks]
             keypoints = [_float32(kp) for kp in keypoints]

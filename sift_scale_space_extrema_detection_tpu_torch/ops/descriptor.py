@@ -7,14 +7,31 @@ neither stage (reference/readme.md:11); the constants follow the IPOL
 descriptor clamp).
 
 Every keypoint samples a fixed G×G grid in its (rotated, σ-scaled) local
-frame. The samples of the scale-space gradient come from
-``ops/kernels/describe.py::window_sample_pair`` — the hand-written CUDA
-kernel for CUDA tensors, its plain version for CPU tensors — and all the
-histogram math around it is tensor code over every slot of every image at
-once; the batch axis is written out. Histograms are contractions with
-one-hot bin assignments (deterministic, unlike ``index_add_`` on CUDA);
-they are matrix products and need full float32, so the entry points refuse
-to run with TF32 matrix products switched on.
+frame. Each of the two stages (orientation, descriptor) takes one of two
+routes, chosen by what it is given (:func:`takes_kernel`):
+
+- the kernel route: stacks and slot fields float32 on a CUDA device, and
+  no sampler of the caller's (``sample_fn=None``, the default). The stage
+  is one launch of a hand-written CUDA kernel
+  (``ops/kernels/histograms.py``: ``orient_slots``, ``describe_pairs``)
+  that samples, forms the histogram and finishes it per slot in shared
+  memory, with no per-sample tensor in device memory, and skips empty
+  slots;
+- the tensor route, the kernels' plain version: everything else (CPU
+  tensors, or an explicit ``sample_fn``). The samples of the scale-space
+  gradient come from ``sample_fn`` (by default
+  ``ops/kernels/describe.py::window_sample_pair``, K2 on the card, its
+  plain version on the CPU) and the histogram math around it is tensor
+  code over every slot of every image at once; the batch axis is written
+  out. Histograms are contractions with one-hot bin assignments
+  (deterministic, unlike ``index_add_`` on CUDA); they are matrix products
+  and need full float32, so this route refuses to run with TF32 matrix
+  products switched on.
+
+The two differ only in the order of the histograms' sums (and the kernel
+route writes θ = 0 where an orientation is not valid). With counters on
+(``utils/profile.py``) each stage call adds 1 to ``describe.route.kernel``
+or ``describe.route.plain``.
 
 Geometry: the octave's inter-pixel distance is ``δ_o = 2^(o-1)``
 (reference/background.js:610-614); a keypoint's octave-local position is
@@ -43,6 +60,7 @@ from ..utils.profile import count, counting, span
 from .budget import budget_capacity, keep_strongest
 from .extrema import first_k_set_indices
 from .kernels.describe import window_sample_pair
+from .kernels.histograms import describe_pairs, orient_slots
 
 TWO_PI = 2.0 * math.pi
 
@@ -221,9 +239,9 @@ def _bilinear_cells(a: np.ndarray, n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _descriptor_constants(g: int, nh: int, lam: float, device: torch.device):
-    """Keypoint-independent constants of the descriptor grid on ``device``,
-    made once: ``yhat``, ``xhat`` ``(G²,)`` (normalised sample coordinates
+def _descriptor_arrays(g: int, nh: int, lam: float):
+    """Keypoint-independent constants of the descriptor grid, float32 on
+    the host: ``yhat``, ``xhat`` ``(G²,)`` (normalised sample coordinates
     in ``[-r̂, r̂]``, ``r̂ = λ·(nh+1)/nh``; the margin feeds the outer cells'
     bilinear support), the Gaussian window ``exp(-(x̂²+ŷ²)/2λ²)`` ``(G²,)``,
     and the spatial weights ``wy[p, y]·wx[p, x]`` as ``(G², nh·nh)``."""
@@ -235,16 +253,38 @@ def _descriptor_constants(g: int, nh: int, lam: float, device: torch.device):
     wy = _bilinear_cells(yhat * np.float32(nh) / scale + shift, nh)
     wx = _bilinear_cells(xhat * np.float32(nh) / scale + shift, nh)
     spatial = (wy[:, :, None] * wx[:, None, :]).reshape(g * g, nh * nh)
-    return tuple(
-        torch.tensor(v.astype(np.float32), device=device)
-        for v in (yhat, xhat, window, spatial)
-    )
+    return tuple(v.astype(np.float32) for v in (yhat, xhat, window, spatial))
+
+
+@functools.lru_cache(maxsize=None)
+def _descriptor_constants(g: int, nh: int, lam: float, device: torch.device):
+    """:func:`_descriptor_arrays` on ``device``, made once: a tensor built
+    from host data is a blocking copy on CUDA."""
+    return tuple(torch.tensor(v, device=device) for v in _descriptor_arrays(g, nh, lam))
+
+
+@functools.lru_cache(maxsize=None)
+def _descriptor_cells(g: int, nh: int, lam: float, device: torch.device):
+    """Each spatial cell's samples, the lists the descriptor kernel sums a
+    cell's bins over: ``(index, weight)`` of ``(nh·nh, L)``, row ``c`` the
+    samples ``p`` with ``spatial[p, c] != 0`` in ascending order and their
+    weights, then ``-1`` (weight 0). Made once on ``device``."""
+    spatial = _descriptor_arrays(g, nh, lam)[3]
+    lists = [np.flatnonzero(spatial[:, c]) for c in range(nh * nh)]
+    index = np.full((nh * nh, max(map(len, lists))), -1, np.int32)
+    weight = np.zeros(index.shape, np.float32)
+    for c, samples in enumerate(lists):
+        index[c, : len(samples)] = samples
+        weight[c, : len(samples)] = spatial[samples, c]
+    return torch.tensor(index, device=device), torch.tensor(weight, device=device)
+
+
+def _descriptor_key(cfg: SiftConfig) -> tuple:
+    return cfg.descriptor_grid_size, cfg.descriptor_n_hist, cfg.lambda_descr
 
 
 def _descriptor_grid(cfg: SiftConfig, device: torch.device):
-    return _descriptor_constants(
-        cfg.descriptor_grid_size, cfg.descriptor_n_hist, cfg.lambda_descr, device
-    )
+    return _descriptor_constants(*_descriptor_key(cfg), device)
 
 
 def _descriptor_coords(y_loc, x_loc, sigma_loc, theta, cfg: SiftConfig):
@@ -312,33 +352,70 @@ class _Slots:
 
     def __init__(self, stacks, batch, octave_id, scale_level, y_loc, x_loc, sigma_loc, valid):
         self.stacks = stacks
+        self.octave_id = octave_id
         self.table = torch.stack(
             [batch, octave_id, scale_level, valid.to(torch.int32)], dim=-1
         ).to(torch.int32)
         self.y_loc, self.x_loc, self.sigma_loc = y_loc, x_loc, sigma_loc
+
+    def plane_sizes(self):
+        """``(h, w)``: each slot's plane height and width, ``(M, 1)`` float32."""
         hs, ws = _plane_sizes(
-            tuple(tuple(s.shape[-2:]) for s in stacks), y_loc.device
+            tuple(tuple(s.shape[-2:]) for s in self.stacks), self.y_loc.device
         )
-        index = octave_id.long().clamp(0, len(stacks) - 1)
-        self.h, self.w = hs[index][:, None], ws[index][:, None]
+        index = self.octave_id.long().clamp(0, len(self.stacks) - 1)
+        return hs[index][:, None], ws[index][:, None]
+
+    def fields(self) -> tuple:
+        """The kernels' inputs: stacks, table, ``y_loc``, ``x_loc``,
+        ``sigma_loc`` (contiguous)."""
+        return (self.stacks, self.table, self.y_loc.contiguous(),
+                self.x_loc.contiguous(), self.sigma_loc.contiguous())
+
+
+def takes_kernel(slots: _Slots, sample_fn, *more: torch.Tensor) -> bool:
+    """Whether a describe stage runs its kernel: no sampler of the caller's,
+    and the stacks, the slot fields and ``more`` (the descriptor stage's θ)
+    float32 on one CUDA device. Else the tensor code runs it."""
+    stack = slots.stacks[0]
+    tensors = (*slots.stacks, slots.y_loc, slots.x_loc, slots.sigma_loc, *more)
+    return (sample_fn is None and stack.device.type == "cuda"
+            and all(t.dtype == torch.float32 and t.device == stack.device for t in tensors))
 
 
 def _orientation_stage(slots: _Slots, cfg: SiftConfig, sample_fn):
-    """``(theta, valid)`` of ``(M, max_orientations)`` for flat slots."""
+    """``(theta, valid)`` of ``(M, max_orientations)`` for flat slots, on
+    the route :func:`takes_kernel` picks, counted by route."""
+    if takes_kernel(slots, sample_fn):
+        count("describe.route.kernel", 1)
+        grid = _orientation_grid(cfg.orientation_grid_size, slots.y_loc.device)
+        return orient_slots(*slots.fields(), grid, cfg)
+    count("describe.route.plain", 1)
+    require_full_float32_matmul(slots.y_loc.device)
     ys, xs, d2 = _orientation_coords(slots.y_loc, slots.x_loc, slots.sigma_loc, cfg)
-    gy, gx = sample_fn(slots.stacks, slots.table, ys, xs)
-    hist = _orientation_post(
-        gy, gx, ys, xs, d2, slots.h, slots.w, slots.sigma_loc, cfg
-    )
+    gy, gx = (sample_fn or window_sample_pair)(slots.stacks, slots.table, ys, xs)
+    h, w = slots.plane_sizes()
+    hist = _orientation_post(gy, gx, ys, xs, d2, h, w, slots.sigma_loc, cfg)
     hist = _smooth_circular(hist, cfg.orientation_smooth_iterations)
     return _extract_peaks(hist, cfg)
 
 
 def _descriptor_stage(slots: _Slots, theta, cfg: SiftConfig, sample_fn):
-    """``(M, 128)`` descriptors for flat slots with orientations ``theta``."""
+    """``(M, 128)`` descriptors for flat slots with orientations ``theta``,
+    on the route :func:`takes_kernel` picks, counted by route."""
+    if takes_kernel(slots, sample_fn, theta):
+        count("describe.route.kernel", 1)
+        dev = slots.y_loc.device
+        return describe_pairs(
+            *slots.fields(), theta.contiguous(), _descriptor_grid(cfg, dev)[:3],
+            _descriptor_cells(*_descriptor_key(cfg), dev), cfg,
+        )
+    count("describe.route.plain", 1)
+    require_full_float32_matmul(slots.y_loc.device)
     ys, xs = _descriptor_coords(slots.y_loc, slots.x_loc, slots.sigma_loc, theta, cfg)
-    gy, gx = sample_fn(slots.stacks, slots.table, ys, xs)
-    return _descriptor_post(gy, gx, ys, xs, slots.h, slots.w, theta, cfg)
+    gy, gx = (sample_fn or window_sample_pair)(slots.stacks, slots.table, ys, xs)
+    h, w = slots.plane_sizes()
+    return _descriptor_post(gy, gx, ys, xs, h, w, theta, cfg)
 
 
 def _batch_column(like: torch.Tensor) -> torch.Tensor:
@@ -374,7 +451,7 @@ def assign_orientations(
     keypoints: Keypoints,
     octave: int,
     cfg: SiftConfig,
-    sample_fn=window_sample_pair,
+    sample_fn=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Orientations for all keypoint slots of one octave.
 
@@ -383,7 +460,6 @@ def assign_orientations(
     ``valid`` is ANDed with the keypoint slot validity. ``sample_fn`` as in
     :func:`describe_compact`.
     """
-    require_full_float32_matmul(octave_stack.device)
     slots = _octave_slots(octave_stack, keypoints, octave, keypoints.valid)
     theta, valid = _orientation_stage(slots, cfg, sample_fn)
     shape = (*keypoints.valid.shape, cfg.max_orientations_per_keypoint)
@@ -397,7 +473,7 @@ def compute_descriptors(
     ori_valid: torch.Tensor,
     octave: int,
     cfg: SiftConfig,
-    sample_fn=window_sample_pair,
+    sample_fn=None,
 ) -> DescribedKeypoints:
     """Descriptors for one octave's keypoints × orientation peaks.
 
@@ -405,7 +481,6 @@ def compute_descriptors(
     :func:`assign_orientations`. Output capacity ``N * max_orientations``;
     an invalid pair is not sampled and its descriptor is zero.
     """
-    require_full_float32_matmul(octave_stack.device)
     n_ori = cfg.max_orientations_per_keypoint
     b = keypoints.valid.shape[0]
     flat_theta = theta.reshape(b, -1)
@@ -433,7 +508,7 @@ def describe_octave(
     keypoints: Keypoints,
     octave: int,
     cfg: SiftConfig,
-    sample_fn=window_sample_pair,
+    sample_fn=None,
 ) -> DescribedKeypoints:
     """Orientation assignment + descriptors for one octave of a batch, in
     the spans ``sift.describe`` and, nested, ``sift.describe.orientation``
@@ -453,7 +528,7 @@ def describe_compact(
     stacks: list[torch.Tensor],
     keypoints_list: list[Keypoints],
     cfg: SiftConfig,
-    sample_fn=window_sample_pair,
+    sample_fn=None,
     max_features: int | None = None,
 ) -> DescribedKeypoints:
     """One describe pass over all octaves and images, on compacted valid
@@ -485,8 +560,11 @@ def describe_compact(
     a pair is a keypoint. ``None`` describes every pair, as above.
 
     Returns fields ``(B, pairs)`` and descriptors ``(B, pairs, 128)``.
-    ``sample_fn`` is :func:`window_sample_pair` or a function with its
-    contract, such as its plain version. The pass runs in the span
+    ``sample_fn``: ``None`` (the default: each stage on the route
+    :func:`takes_kernel` picks, the kernels for float32 CUDA tensors, the
+    tensor code with :func:`window_sample_pair` elsewhere), or
+    :func:`window_sample_pair` or a function with its contract, such as its
+    plain version, which the tensor code samples with. The pass runs in the span
     ``sift.describe``, its two sampling stages in ``sift.describe.orientation``
     and ``sift.describe.descriptor``.
     """
@@ -518,7 +596,6 @@ def _budget_pairs(strength, pair_valid, max_features: int):
 
 
 def _describe_compact(stacks, keypoints_list, cfg: SiftConfig, sample_fn, max_features):
-    require_full_float32_matmul(stacks[0].device)
     n_ori = cfg.max_orientations_per_keypoint
 
     def cat(field):

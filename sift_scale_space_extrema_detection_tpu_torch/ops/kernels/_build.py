@@ -79,6 +79,22 @@ _SIGNATURES = {  # name: (argtypes, restype)
          _I, _P],
         _I,
     ),
+    # stacks, heights, widths, n_octaves, batch, n_scales, slots, y_loc,
+    # x_loc, sigma_loc, uy, ux, n_samples, nbins, n_peaks, smooth, scalars,
+    # theta, valid, n_slots, stream
+    "sift_orient_slots": (
+        [_PP, _IP, _IP, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _FP,
+         _P, _P, ctypes.c_longlong, _P],
+        _I,
+    ),
+    # stacks, heights, widths, n_octaves, batch, n_scales, slots, y_loc,
+    # x_loc, sigma_loc, theta, yhat, xhat, window, cell_index, cell_weight,
+    # n_samples, n_ori, n_cells, cell_len, scalars, desc, n_slots, stream
+    "sift_describe_pairs": (
+        [_PP, _IP, _IP, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _FP, _P, ctypes.c_longlong, _P],
+        _I,
+    ),
     # dogs, fields, dims, geometry, n_octaves, batch, depth, n_slots, caps,
     # n_steps, limits, ints, floats, valid, live, stream
     "sift_newton_ladder": (

@@ -37,49 +37,22 @@
 // samples from it. The TPU kernel's aligned window planner, its padding of
 // stacks and slot count, and its interpolation by tent-weight matrix
 // products answer that chip's DMA and matrix unit and have no counterpart.
+//
+// Where it launches: for a caller's own sampler of the describe stages
+// (ops/descriptor.py's tensor code with sample_fn=window_sample_pair). The
+// frontend's describe stages run histograms.cu's two kernels, which sample
+// with this kernel's device code (gradient_sample.cuh) inside their
+// histograms and write no samples to device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gradient_sample.cuh"
+
 namespace {
 
-constexpr int kMaxOctaves = 8;
+using sift_sample::OctaveTable;
 constexpr int kThreads = 256;
-
-struct OctaveTable {
-  const float* stack[kMaxOctaves];
-  int h[kMaxOctaves];
-  int w[kMaxOctaves];
-};
-
-// gy at integer (y, x): (P[y+1][x] - P[y-1][x]) / 2 inside, 0 on the
-// plane's first and last row.
-__device__ __forceinline__ float grad_y(const float* __restrict__ p, int y,
-                                        int x, int h, int w) {
-  if (y < 1 || y > h - 2) return 0.f;
-  return __fmul_rn(
-      __fsub_rn(p[(size_t)(y + 1) * w + x], p[(size_t)(y - 1) * w + x]), 0.5f);
-}
-
-// gx at integer (y, x): (P[y][x+1] - P[y][x-1]) / 2 inside, 0 on the
-// plane's first and last column.
-__device__ __forceinline__ float grad_x(const float* __restrict__ p, int y,
-                                        int x, int h, int w) {
-  if (x < 1 || x > w - 2) return 0.f;
-  return __fmul_rn(
-      __fsub_rn(p[(size_t)y * w + x + 1], p[(size_t)y * w + x - 1]), 0.5f);
-}
-
-// top = v00 (1 - fx) + v01 fx, bot alike, out = top (1 - fy) + bot fy,
-// every product and sum rounded on its own.
-__device__ __forceinline__ float blend(float v00, float v01, float v10,
-                                       float v11, float fx, float fy) {
-  const float gx1 = __fsub_rn(1.0f, fx);
-  const float gy1 = __fsub_rn(1.0f, fy);
-  const float top = __fadd_rn(__fmul_rn(v00, gx1), __fmul_rn(v01, fx));
-  const float bot = __fadd_rn(__fmul_rn(v10, gx1), __fmul_rn(v11, fx));
-  return __fadd_rn(__fmul_rn(top, gy1), __fmul_rn(bot, fy));
-}
 
 // The table is a __grid_constant__ parameter: indexing it by the slot's octave
 // reads the parameter bank directly, with no per-thread copy.
@@ -94,36 +67,16 @@ __global__ void window_sample_kernel(const __grid_constant__ OctaveTable table,
                                      size_t total, int n_samples) {
   const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
-  const int4 slot = slots[i / n_samples];  // batch, octave, scale, valid
-  if (slot.w == 0 || slot.y < 0 || slot.y >= n_octaves) {
+  int h = 0, w = 0;
+  const float* plane = sift_sample::slot_plane(table, n_octaves, batch,
+                                               n_scales, slots[i / n_samples],
+                                               h, w);
+  if (plane == nullptr) {
     gy_out[i] = 0.f;
     gx_out[i] = 0.f;
     return;
   }
-  const int h = table.h[slot.y];
-  const int w = table.w[slot.y];
-  const int b = min(max(slot.x, 0), batch - 1);
-  const int s = min(max(slot.z, 0), n_scales - 1);
-  const float* plane =
-      table.stack[slot.y] + ((size_t)b * n_scales + s) * ((size_t)h * w);
-
-  const float y = fminf(fmaxf(ys[i], 0.f), (float)(h - 1));
-  const float x = fminf(fmaxf(xs[i], 0.f), (float)(w - 1));
-  const float y_floor = floorf(y);
-  const float x_floor = floorf(x);
-  const float fy = __fsub_rn(y, y_floor);
-  const float fx = __fsub_rn(x, x_floor);
-  const int y0 = min(max((int)y_floor, 0), h - 1);
-  const int x0 = min(max((int)x_floor, 0), w - 1);
-  const int y1 = min(y0 + 1, h - 1);
-  const int x1 = min(x0 + 1, w - 1);
-
-  gy_out[i] = blend(grad_y(plane, y0, x0, h, w), grad_y(plane, y0, x1, h, w),
-                    grad_y(plane, y1, x0, h, w), grad_y(plane, y1, x1, h, w),
-                    fx, fy);
-  gx_out[i] = blend(grad_x(plane, y0, x0, h, w), grad_x(plane, y0, x1, h, w),
-                    grad_x(plane, y1, x0, h, w), grad_x(plane, y1, x1, h, w),
-                    fx, fy);
+  sift_sample::sample_gradient(plane, h, w, ys[i], xs[i], gy_out[i], gx_out[i]);
 }
 
 }  // namespace
@@ -142,18 +95,12 @@ extern "C" int sift_window_sample_pair(const void* const* stacks,
                                        const float* xs, float* gy, float* gx,
                                        long long n_slots, int n_samples,
                                        void* stream) {
-  if (n_octaves < 1 || n_octaves > kMaxOctaves || n_samples < 1 ||
-      n_slots < 0) {
+  OctaveTable table;
+  if (!sift_sample::fill_table(table, stacks, heights, widths, n_octaves) ||
+      n_samples < 1 || n_slots < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_slots == 0) return (int)cudaSuccess;
-  OctaveTable table;
-  for (int o = 0; o < kMaxOctaves; ++o) {
-    const bool used = o < n_octaves;
-    table.stack[o] = used ? static_cast<const float*>(stacks[o]) : nullptr;
-    table.h[o] = used ? heights[o] : 0;
-    table.w[o] = used ? widths[o] : 0;
-  }
   const size_t total = (size_t)n_slots * (size_t)n_samples;
   const size_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 2147483647ull) return (int)cudaErrorInvalidValue;

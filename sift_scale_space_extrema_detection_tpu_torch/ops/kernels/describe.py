@@ -6,6 +6,11 @@
 :func:`window_sample_pair_reference` is its plain PyTorch version with the
 same contract; the wrapper runs it only for tensors on the CPU. On CUDA
 tensors the wrapper launches the kernel or raises; it never falls back.
+The describe stages launch it only for a caller's own sampler: their kernel
+route (``histograms.py``) samples with its device code inside each stage's
+kernel. :func:`check_tensors`, :func:`octave_table` and
+:func:`require_cuda` are the checks and the octave table both modules hand
+their kernels.
 
 Contract (what is computed; the TPU kernel's aligned windows, padded slabs,
 padded slot count and tent-weight matrix products answer that chip's DMA and
@@ -40,33 +45,62 @@ from ._build import check_launch, load_kernels
 MAX_OCTAVES = 8  # the kernel's octave table (kMaxOctaves in csrc/describe.cu)
 
 
-def _check(stacks, slots, ys, xs) -> None:
-    """Raise on what the kernel does not take (device, type, shape, layout)."""
+def check_tensors(what: str, stacks, named, device) -> None:
+    """Raise on what the describe kernels do not take: 1 to
+    :data:`MAX_OCTAVES` contiguous, non-empty float32 ``(B, S, H, W)`` stacks
+    of one ``(B, S)``, and each ``(name, tensor, dtype)`` of ``named`` of that
+    dtype, contiguous, all on ``device``."""
     if not 1 <= len(stacks) <= MAX_OCTAVES:
-        raise ValueError(
-            f"window_sample_pair: 1 to {MAX_OCTAVES} octave stacks, got {len(stacks)}"
-        )
+        raise ValueError(f"{what}: 1 to {MAX_OCTAVES} octave stacks, got {len(stacks)}")
     lead = stacks[0].shape[:2]
     for name, t, dtype in (
         *((f"stacks[{o}]", s, torch.float32) for o, s in enumerate(stacks)),
-        ("slots", slots, torch.int32),
-        ("ys", ys, torch.float32),
-        ("xs", xs, torch.float32),
+        *named,
     ):
         if t.dtype != dtype:
-            raise TypeError(f"window_sample_pair: {name} must be {dtype}, got {t.dtype}")
-        if t.device != ys.device:
-            raise ValueError(
-                f"window_sample_pair: {name} is on {t.device}, ys on {ys.device}"
-            )
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not on {device}")
         if not t.is_contiguous():
-            raise ValueError(f"window_sample_pair: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     for o, s in enumerate(stacks):
         if s.dim() != 4 or min(s.shape) < 1 or s.shape[:2] != lead:
             raise ValueError(
-                f"window_sample_pair: stacks[{o}] must be a non-empty (B, S, H, W) "
+                f"{what}: stacks[{o}] must be a non-empty (B, S, H, W) "
                 f"with (B, S) = {tuple(lead)}, got {tuple(s.shape)}"
             )
+
+
+def octave_table(stacks) -> tuple:
+    """The octave table's host arrays (device pointers, heights, widths),
+    handed to a kernel by value: no copy to the card."""
+    n = len(stacks)
+    return (
+        (ctypes.c_void_p * n)(*(s.data_ptr() for s in stacks)),
+        (ctypes.c_int * n)(*(s.shape[2] for s in stacks)),
+        (ctypes.c_int * n)(*(s.shape[3] for s in stacks)),
+    )
+
+
+def require_cuda(what: str, device: torch.device, slots: torch.Tensor) -> None:
+    """Raise unless ``slots`` (read as ``int4`` rows) lies on a 16-byte
+    boundary and ``device`` is a CUDA device."""
+    if slots.data_ptr() % 16:
+        raise ValueError(f"{what}: slots must be 16-byte aligned")
+    if device.type != "cuda":
+        raise ValueError(
+            f"{what}: no kernel for device {device}; "
+            "pass CUDA tensors, or CPU tensors for the plain version"
+        )
+
+
+def _check(stacks, slots, ys, xs) -> None:
+    """Raise on what the kernel does not take (device, type, shape, layout)."""
+    check_tensors(
+        "window_sample_pair", stacks,
+        (("slots", slots, torch.int32), ("ys", ys, torch.float32), ("xs", xs, torch.float32)),
+        ys.device,
+    )
     if ys.dim() != 2 or ys.shape[1] < 1 or xs.shape != ys.shape:
         raise ValueError(
             f"window_sample_pair: ys and xs must be one (M, N) shape, got "
@@ -125,26 +159,15 @@ def window_sample_pair(
     dev = ys.device
     if dev.type == "cpu":
         return window_sample_pair_reference(stacks, slots, ys, xs)
-    if dev.type != "cuda":
-        raise ValueError(
-            f"window_sample_pair: no kernel for device {dev}; "
-            "pass CUDA tensors, or CPU tensors for the plain version"
-        )
-    if slots.data_ptr() % 16:
-        raise ValueError("window_sample_pair: slots must be 16-byte aligned")
-    n_oct = len(stacks)
+    require_cuda("window_sample_pair", dev, slots)
     batch, n_scales = stacks[0].shape[:2]
     m, n = ys.shape
     gy = torch.empty_like(ys)
     gx = torch.empty_like(xs)
-    # The octave table goes to the kernel by value: host arrays, no copy.
-    pointers = (ctypes.c_void_p * n_oct)(*(s.data_ptr() for s in stacks))
-    heights = (ctypes.c_int * n_oct)(*(s.shape[2] for s in stacks))
-    widths = (ctypes.c_int * n_oct)(*(s.shape[3] for s in stacks))
     lib = load_kernels()
     with torch.cuda.device(dev):
         rc = lib.sift_window_sample_pair(
-            pointers, heights, widths, n_oct, batch, n_scales,
+            *octave_table(stacks), len(stacks), batch, n_scales,
             slots.data_ptr(), ys.data_ptr(), xs.data_ptr(),
             gy.data_ptr(), gx.data_ptr(), m, n,
             torch.cuda.current_stream(dev).cuda_stream,

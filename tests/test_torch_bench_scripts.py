@@ -159,9 +159,12 @@ def test_shared_helpers_on_the_cpu():
     assert benchmarks.peak_gib(lambda: 7, cpu) == (7, None)
     assert benchmarks.device_entry(cpu) == "cpu"
     assert benchmarks.path_kernels("fused", True) == (
-        "fused_octave", "select_candidates", "newton_ladder", "window_sample_pair")
+        "fused_octave", "select_candidates", "newton_ladder", "orient_slots", "describe_pairs")
+    assert benchmarks.path_kernels("fused", True, upright=True) == (
+        "fused_octave", "select_candidates", "newton_ladder", "describe_pairs")
     assert benchmarks.path_kernels("pallas", False) == ("blur_fused", "newton_ladder")
-    assert benchmarks.path_kernels("separable", True) == ("newton_ladder", "window_sample_pair")
+    assert benchmarks.path_kernels("separable", True) == (
+        "newton_ladder", "orient_slots", "describe_pairs")
     assert benchmarks.path_kernels("exact", False) == ()
     none = benchmarks.path_launches(benchmarks.launch_counts())
     assert none == dict.fromkeys(benchmarks.PATH_KERNELS, 0)

@@ -275,7 +275,9 @@ def test_detect_and_describe_on_card_matches_cpu(device):
     before = launch_counts()
     got = port.detect_and_describe_batched(images.to(device), cfg)
     torch.cuda.synchronize()
-    assert launches_since(before)["window_sample_pair"] == 2  # orientation, descriptor
+    since = launches_since(before)  # R3 for orientation, R4 for the descriptors; K2 no more
+    assert since["orient_slots"] == since["describe_pairs"] == 1
+    assert since["window_sample_pair"] == 0
     want = port.detect_and_describe_batched(images, cfg, device="cpu")
     assert want.valid.sum() > 30
     # The card's atan2, exp, sin and cos differ from the CPU's in the last
@@ -338,7 +340,9 @@ def test_per_octave_describe_on_card_matches_cpu(device):
     before = launch_counts()
     got = port.detect_and_describe_batched(images.to(device), cfg)
     torch.cuda.synchronize()
-    assert launches_since(before)["window_sample_pair"] == 2 * cfg.num_octaves
+    since = launches_since(before)
+    assert since["orient_slots"] == since["describe_pairs"] == cfg.num_octaves
+    assert since["window_sample_pair"] == 0
     want = port.detect_and_describe_batched(images, cfg, device="cpu")
     assert want.valid.sum() > 30 and got.valid.shape == want.valid.shape
     # Held at a rate for the reasons given in the test above.
@@ -350,6 +354,128 @@ def test_per_octave_describe_on_card_matches_cpu(device):
     assert same.float().mean() >= 0.99
     cosine = (got.descriptor.cpu()[v][same] * want.descriptor[v][same]).sum(-1)
     assert cosine.min() >= 0.9999
+
+
+# --- R3 and R4, the describe stages' kernels, against the tensor code --------------
+
+# A few frames of the benchmark's describe cells: configuration, traffic and
+# frames (the photo cell's two, and its whole 16-photo batch below).
+DESCRIBE_CELLS = {
+    "tum": ("tum-vga", "describe-b64-zigzag", 4),
+    "kitti": ("kitti-odom", "describe-b64-dolly", 4),
+    "photo": ("colmap-3200", "extract-b16-zigzag", 2),
+}
+_CELL_CACHE = {}
+
+
+def _cell_keypoints(cell, frames=None):
+    """``(cfg, stacks, keypoints, max_features)`` of ``frames`` frames of a
+    benchmark cell (its scene and ``SiftConfig``, made on the card by
+    ``port_bench/frames.py``; the traffic's budget or None); the last one
+    asked for is kept for the next test."""
+    from pathlib import Path
+
+    from port_bench import frames as bench_frames
+    from port_bench.reference import frontend as ref_frontend
+    from sift_scale_space_extrema_detection_tpu_torch.models.frontend import _refine_per_octave
+
+    config_name, traffic_name, n = DESCRIBE_CELLS[cell]
+    key = (cell, frames or n)
+    if key not in _CELL_CACHE:
+        _CELL_CACHE.clear()
+        torch.cuda.empty_cache()
+        root = Path(__file__).resolve().parent.parent / "port_bench"
+        config = json.loads((root / "configs" / f"{config_name}.json").read_text())
+        traffic = json.loads((root / "traffic" / f"{traffic_name}.json").read_text())
+        images = bench_frames.make_frames(7, config, traffic, key[1], torch.device("cuda"))
+        images = ref_frontend.pad_edges(images, config.get("pad_to"))
+        cfg = port.SiftConfig(**config["sift"])
+        dogs, masks, stacks = _pyramid(images, cfg, "fused", emit_scales=True)
+        _, selected = _select_candidates(dogs, cfg, masks)
+        keypoints = _refine_per_octave(dogs, selected, cfg)
+        _CELL_CACHE[key] = (cfg, stacks, keypoints, traffic.get("max_features"))
+    return _CELL_CACHE[key]
+
+
+def _assert_stage_gaps(gaps):
+    """R3 and R4 on the slots of each stage call against the tensor code
+    (R4 on the same θ): the histograms' sums differ only in order, so
+    validity differs only at near ties, θ by about an ulp and a descriptor
+    by a few ulps; invalid slots empty, reruns bit-equal (no atomics)."""
+    assert gaps["pairs"] > 100, gaps
+    assert gaps["orient_valid_differ"] <= 1e-3 * gaps["orient_valid"], gaps
+    assert gaps["theta_median"] <= 1e-6, gaps
+    assert gaps["desc_l2_max"] <= 1e-5, gaps
+    assert gaps["invalid_zero"] and gaps["rerun_equal"], gaps
+
+
+@pytest.mark.parametrize("mode", ["compact", "budget", "upright", "per_octave"])
+@pytest.mark.parametrize("cell", list(DESCRIBE_CELLS))
+def test_describe_kernels_match_the_tensor_code(device, cell, mode):
+    """R3 and R4 on tum-, kitti- and photo-shaped batches, through
+    ``describe_compact`` (with and without ``max_features``, with
+    ``upright``) and per octave (``describe_octave``): one launch each a
+    pass (R3 none upright), K2 none; each stage against the tensor code on
+    the same slots; the whole pass against the tensor route."""
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
+        describe_stage_calls,
+        describe_stage_gaps,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import (
+        concat_described,
+        describe_compact,
+        describe_octave,
+    )
+
+    cfg, stacks, keypoints, budget = _cell_keypoints(cell)
+    cfg = dataclasses.replace(cfg, upright=mode == "upright")
+    max_features = (budget or 100) if mode == "budget" else None
+
+    def run(sample_fn=None):
+        if mode == "per_octave":
+            return concat_described([describe_octave(s, k, o, cfg, sample_fn)
+                                     for o, (s, k) in enumerate(zip(stacks, keypoints))])
+        return describe_compact(stacks, keypoints, cfg, sample_fn, max_features)
+
+    before = launch_counts()
+    with describe_stage_calls() as calls:
+        got = run()
+    torch.cuda.synchronize()
+    since = launches_since(before)
+    passes = cfg.num_octaves if mode == "per_octave" else 1
+    assert since["orient_slots"] == (0 if cfg.upright else passes)
+    assert since["describe_pairs"] == passes and since["window_sample_pair"] == 0
+    _assert_stage_gaps(describe_stage_gaps(calls))
+    del calls
+    want = run(window_sample_pair)
+    assert chip_smoke._slot_agreement(got, want) >= 0.999
+    both = got.valid & want.valid
+    dtheta = (got.theta - want.theta)[both].abs()
+    dtheta = torch.minimum(dtheta, 2 * torch.pi - dtheta)
+    assert dtheta.median() <= 1e-6
+    assert (got.descriptor - want.descriptor)[both].norm(dim=-1).median() <= 1e-5
+    assert not got.descriptor[~got.valid].any()
+
+
+def test_describe_kernels_address_a_stack_past_int32(device):
+    """The photo cell's whole 16-photo batch, whose octave-0 Gaussian stack
+    holds more than 2^31 floats: R3 and R4 hold their bars on the slots of
+    its budgeted pass, the last photo's among them (64-bit offsets)."""
+    from sift_scale_space_extrema_detection_tpu_torch.benchmarks import (
+        describe_stage_calls,
+        describe_stage_gaps,
+    )
+    from sift_scale_space_extrema_detection_tpu_torch.ops.descriptor import describe_compact
+
+    cfg, stacks, keypoints, budget = _cell_keypoints("photo", 16)
+    assert stacks[0].numel() > 2**31
+    with describe_stage_calls() as calls:
+        describe_compact(stacks, keypoints, cfg, max_features=budget)
+    table = calls[-1][1][0].table
+    assert bool(((table[:, 0] == 15) & (table[:, 1] == 0) & (table[:, 3] != 0)).any())
+    _assert_stage_gaps(describe_stage_gaps(calls))
+    del calls
+    _CELL_CACHE.clear()
 
 
 # --- the oracle leg and the solvers on the card ------------------------------------
@@ -607,7 +733,8 @@ def test_cli_on_card_matches_cpu(device, tmp_path, blur, k1, k3):
     argv = [path, "--octaves", "3", "--descriptors", "--blur", blur]
     before = launch_counts()
     assert cli.main(argv + ["-o", str(tmp_path / "card")]) == 0
-    assert _launched(before) == dict(fused_octave=k1, window_sample_pair=6, blur_fused=k3)
+    assert _launched(before) == dict(fused_octave=k1, orient_slots=3, describe_pairs=3,
+                                     window_sample_pair=0, blur_fused=k3)
     assert cli.main(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu", "--no-galleries"]) == 0
     got, got_desc = chip_smoke.cli_records(str(tmp_path / "card"))
     want, want_desc = chip_smoke.cli_records(str(tmp_path / "cpu"))
@@ -668,7 +795,8 @@ def test_evaluate_on_card_agrees_with_cpu(device, tmp_path, capsys):
         metrics.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
         assert read_tum_trajectory(traj)[0].shape == (6,)
         if device_flag == "cuda":
-            assert _launched(before) == dict(fused_octave=3, window_sample_pair=2, blur_fused=0)
+            assert _launched(before) == dict(fused_octave=3, orient_slots=1, describe_pairs=1,
+                                             window_sample_pair=0, blur_fused=0)
     card, cpu = metrics
     assert card["frames"] == cpu["frames"] == 6
     assert card["ate_rmse"] < 0.25 and abs(card["ate_rmse"] - cpu["ate_rmse"]) < 0.02, metrics
@@ -702,7 +830,8 @@ def test_data_parallel_frontend_on_card_equals_the_batched_one(device, nccl_mesh
     cfg = port.SiftConfig(**SHARD_CFG)
     before = launch_counts()
     got = port.parallel.detect_and_describe_data_parallel(images, cfg, nccl_mesh)
-    assert _launched(before) == dict(fused_octave=3, window_sample_pair=2, blur_fused=0)
+    assert _launched(before) == dict(fused_octave=3, orient_slots=1, describe_pairs=1,
+                                     window_sample_pair=0, blur_fused=0)
     want = port.detect_and_describe_batched(images, cfg)
     assert got.valid.is_cuda and int(got.valid.sum()) > 0
     for f in dataclasses.fields(got):
@@ -768,8 +897,9 @@ def test_sharded_slam_and_session_on_card_at_world_1(device, nccl_mesh):
 
 def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path):
     """Two gloo ranks on the one card, 2 frames each (``chip_smoke.py`` phase
-    17 (b)'s rank and bars): each launches K1 per octave and K2 per stage,
-    K1 and K2 equal their plain versions on its share, the ranks sit on the
+    17 (b)'s rank and bars): each launches K1 per octave and R3 and R4 once,
+    K1 and K2 equal their plain versions on its share, R3 and R4 hold
+    their bars against the tensor code, the ranks sit on the
     parent's card with their outputs there, and the gathered result equals
     each share's batched frontend bit for bit."""
     import torch.multiprocessing as mp
@@ -784,8 +914,8 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
                                        chip_smoke._make_batch(4, 96, 128), 2, ("fused",))
     launches, octave_err, sample_err, _ = chip_smoke._shard_bars(
         torch, chip_smoke._read_ranks(str(tmp_path), 2), spec, ref, "", "two gloo ranks")
-    assert launches == collections.Counter(fused_octave=8, window_sample_pair=4, newton_ladder=8,
-                                           select_candidates=8)
+    assert launches == collections.Counter(fused_octave=8, orient_slots=2, describe_pairs=2,
+                                           newton_ladder=8, select_candidates=8)
     assert octave_err == sample_err == 0.0
 
 
@@ -795,8 +925,8 @@ def test_data_parallel_frontend_over_two_gloo_ranks_on_the_card(device, tmp_path
 @pytest.mark.parametrize("blur", ["fused", "cuda"])
 def test_a_card_other_than_0_in_one_process(device, blur):
     """``device="cuda:<last card>"`` after a run on card 0, whose constants
-    the per-device caches (taps, grids, offsets) already hold: the kernels
-    launch on that card (K1, K2 and K3 counted, outputs there), the result equals
+    the per-device caches (taps, grids, cell lists, offsets) already hold:
+    the kernels launch on that card (K1, R3, R4 and K3 counted, outputs there), the result equals
     card 0's bit for bit, and nothing is allocated on card 0, not even for
     a moment (``chip_smoke.py`` phase 20 (g) at 64 × 480×640)."""
     cards = torch.cuda.device_count()
@@ -812,9 +942,10 @@ def test_a_card_other_than_0_in_one_process(device, blur):
     before = launch_counts()
     got = port.detect_and_describe_batched(images, cfg, blur, device=str(other))
     torch.cuda.synchronize(other)
+    described = dict(orient_slots=1, describe_pairs=1, window_sample_pair=0)
     assert _launched(before) == (
-        dict(fused_octave=3, window_sample_pair=2, blur_fused=0) if blur == "fused"
-        else dict(fused_octave=0, window_sample_pair=2, blur_fused=chip_smoke._blur_count(cfg)))
+        dict(fused_octave=3, blur_fused=0, **described) if blur == "fused"
+        else dict(fused_octave=0, blur_fused=chip_smoke._blur_count(cfg), **described))
     assert torch.cuda.max_memory_allocated(0) == held
     assert int(got.valid.sum()) > 0
     for f in dataclasses.fields(got):
@@ -826,23 +957,25 @@ def test_a_card_other_than_0_in_one_process(device, blur):
 # --- the blur-by-blur frontend and the pooled refinement on the card ----------
 
 
-def _launched(before, names=("fused_octave", "window_sample_pair", "blur_fused")):
+def _launched(before, names=("fused_octave", "orient_slots", "describe_pairs",
+                              "window_sample_pair", "blur_fused")):
     """The launches of ``names`` since ``before = launch_counts()``, by name."""
     since = launches_since(before)
     return {name: since[name] for name in names}
 
 
 def test_per_trio_detect_and_describe_on_card_equal_the_tap_loop(device):
-    """``blur="cuda"`` launches K3 once per blurred scale (and K2 twice per
-    describe, K1 never) and gives every field of ``blur="separable"`` on the
-    card: K3 is bit-equal to the tap loop."""
+    """``blur="cuda"`` launches K3 once per blurred scale (and R3 and R4 once
+    each a describe, K1 and K2 never) and gives every field of
+    ``blur="separable"`` on the card: K3 is bit-equal to the tap loop."""
     images = torch.from_numpy(_blob_images(13, 2, 96, 128)).to(device)
     cfg = port.SiftConfig(num_octaves=3, scales_per_octave=5, max_keypoints_per_trio=32)
-    for call, k2 in ((port.detect_batched, 0), (port.detect_and_describe_batched, 2)):
+    for call, passes in ((port.detect_batched, 0), (port.detect_and_describe_batched, 1)):
         before = launch_counts()
         got = call(images, cfg, "cuda")
         torch.cuda.synchronize()
-        assert _launched(before) == dict(fused_octave=0, window_sample_pair=k2,
+        assert _launched(before) == dict(fused_octave=0, orient_slots=passes,
+                                         describe_pairs=passes, window_sample_pair=0,
                                          blur_fused=chip_smoke._blur_count(cfg))
         want = call(images, cfg, "separable")
         got, want = (r[0] if isinstance(r, tuple) else r for r in (got, want))
@@ -876,8 +1009,8 @@ def test_per_trio_slam_on_card_equals_the_tap_loop(device):
     got = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="cuda",
                                     frontend_chunk=4)
     per_chunk = chip_smoke._blur_count(sift_cfg)
-    assert _launched(before) == dict(fused_octave=0, window_sample_pair=2 * 2,
-                                     blur_fused=2 * per_chunk)
+    assert _launched(before) == dict(fused_octave=0, orient_slots=2, describe_pairs=2,
+                                     window_sample_pair=0, blur_fused=2 * per_chunk)
     want = port.run_slam_from_images(frames, k_mat, sift_cfg, slam_cfg, blur="separable",
                                      frontend_chunk=4)
     assert np.isfinite(got.translations).all()

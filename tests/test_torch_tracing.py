@@ -267,6 +267,34 @@ def test_a_fused_batch_on_the_card_selects_on_the_kernel_route():
     assert _select_routes(_frames(b=2).to("cuda")) == {"select.route.kernel": 4}
 
 
+def _describe_routes(images, entry) -> dict:
+    """The describe route counters of one batch through ``entry``."""
+    with tracing(spans=False, counters=True) as session:
+        entry(images, CFG, device=images.device)
+    return {k: v for k, v in session.counters.items() if k.startswith("describe.route.")}
+
+
+@pytest.mark.parametrize("entry, want", [
+    (port.detect_and_describe_batched, {"describe.route.plain": 2}),
+    (port.detect_batched, {}),
+])
+def test_a_batch_on_the_cpu_describes_on_the_plain_route(entry, want):
+    assert _describe_routes(_frames(b=2), entry) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry, want", [
+    (port.detect_and_describe_batched, {"describe.route.kernel": 2}),
+    (port.detect_batched, {}),
+])
+def test_a_batch_on_the_card_describes_on_the_kernel_route(entry, want):
+    """On the card each describe stage goes to its kernel (R3, R4), once a
+    batch, and none to the tensor code; detection alone describes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert _describe_routes(_frames(b=2).to("cuda"), entry) == want
+
+
 def test_the_session_state_is_back_off_after_an_error():
     with pytest.raises(RuntimeError):
         with tracing(counters=True):
